@@ -16,11 +16,28 @@ Phases, each printed as one JSON object per line:
   4. cpu:    the same coded deployment for 3 rounds on the card and on the
              CPU (plain versions); returned counts and wall clock must be
              identical and theta must agree within the stated tolerance;
-  5. kernel: each kernel against its plain PyTorch version on the card, at
+  5. fused_embed: coded, naive and greedy with fused_embed=True on the RAW
+             (30, 400, 784) shards, one rff_linreg_grad_masked launch a
+             round; the coded run against its two-pass control (the main
+             path's coded deployment, whose embedded shards are shown to be
+             the same bits), its device memory held far below one
+             (rows, L, q) tensor, and its warm ms per round;
+  6. unfused: coded with fused_coded=False, the coded gradient a separate
+             linreg_grad launch a round, against the main path's coded run;
+  7. legacy: coded, naive and greedy on engine="legacy", the per-client
+             oracle, against the main path's batched runs;
+  8. encode_local: the per-client parity_encode loop over the coded
+             deployment's 30 clients, then aggregate_parity, against the
+             batched encode of the main path;
+  9. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs) and at edge shapes one
              below, at and one above a tile multiple; times with CUDA events;
-  6. the kernels table, then the final line
+ 10. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Each path phase sets every launch count to 0 just before it drives its
+path and reads the counts just after; each kernel's `launches` in the
+table is the sum over the path phases.
 
 Any failure raises and the script exits non-zero without the final line.
 It exits 2 at once where there is no CUDA device or no src/repro_torch.
@@ -49,8 +66,17 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # TF32 off); the expected error is ~sqrt(K) ulp of the output's scale
 REL_TOL = 1e-5
 # theta after CPU_ROUNDS rounds, card vs CPU: the same float32 differences,
-# carried through the parity set and three SGD updates
+# carried through the parity set and three SGD updates; the same tolerance
+# holds theta after ROUNDS rounds of one path against another on the card
 THETA_REL_TOL = 1e-4
+# the fused kernel against its plain version: the cosine's argument
+# x.omega + delta (d = 784 terms, several units large) is summed in another
+# order than cuBLAS's, and its float32 rounding (~1e-6 of phi's scale) is
+# carried through both contractions (q = 2000 terms, then L = 2400)
+FUSED_REL_TOL = 1e-4
+# the legacy oracle's wall clock sums float64 round times on the host, the
+# batched engine's float32 ones
+WALL_REL_TOL = 1e-6
 
 TPU_KERNELS = [
     ("rff_embed", "src/repro/kernels/rff_embed.py:39",
@@ -59,14 +85,16 @@ TPU_KERNELS = [
      "src/repro_torch/kernels/csrc/parity_encode.cu"),
     ("linreg_grad_masked", "src/repro/kernels/linreg_grad.py:128",
      "src/repro_torch/kernels/csrc/linreg_grad.cu"),
-]
-NOT_YET_PORTED = [
     ("rff_linreg_grad_masked", "src/repro/kernels/rff_linreg_grad.py:110",
-     "fused_embed=True path"),
+     "src/repro_torch/kernels/csrc/rff_linreg_grad.cu"),
     ("linreg_grad", "src/repro/kernels/linreg_grad.py:83",
-     "fused_coded=False path and the legacy oracle"),
+     "src/repro_torch/kernels/csrc/linreg_grad.cu"),
     ("parity_encode", "src/repro/kernels/parity_encode.py:39",
-     "per-client encoding.encode_local"),
+     "src/repro_torch/kernels/csrc/parity_encode.cu"),
+]
+# the kernels of the main phase (the first slice's path)
+MAIN_KERNELS = ("rff_embed", "parity_encode_batched", "linreg_grad_masked")
+NOT_YET_PORTED = [
     ("gqa_decode", "src/repro/kernels/gqa_decode.py:67",
      "model zoo only"),
 ]
@@ -111,9 +139,9 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def max_err(torch, got, want) -> tuple[float, float]:
+def max_err(torch, got, want, rel_tol=REL_TOL) -> tuple[float, float]:
     err = float((got - want).abs().max())
-    tol = REL_TOL * max(1.0, float(want.abs().max()))
+    tol = rel_tol * max(1.0, float(want.abs().max()))
     check(math.isfinite(err) and err <= tol,
           f"kernel disagrees with its plain version: {err} > {tol}")
     return err, tol
@@ -215,8 +243,9 @@ def main_path(torch, dev):
         results[scheme] = (exp, res)
     main_launches = dict(ops.LAUNCHES)
     check(main_launches["rff_embed"] >= 1, "rff_embed never launched")
-    for name, count in main_launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    for name in MAIN_KERNELS:
+        check(main_launches[name] > 0,
+              f"{name} was not launched on the main path")
     # the first run of a process pays one-time costs (lazily loaded CUDA
     # modules of the PyTorch ops, the round tensors): run each deployment
     # again, without eval, for the steady per-round time
@@ -251,7 +280,7 @@ def main_path(torch, dev):
           "naive_mean_round_time": naive})
     return dict(spec=dataclasses.replace(base, scheme="coded"), xs=xs, ys=ys,
                 x_tr=x_tr, omega=omega, delta=delta, coded=results["coded"],
-                g_stack=g_stack,
+                g_stack=g_stack, results=results, ds=ds, nodes=nodes,
                 launches=main_launches)
 
 
@@ -279,6 +308,229 @@ def cpu_twin(torch, dev, state) -> None:
           "gpu_s": gpu_s, "cpu_s": cpu_s})
     check(same_clock and same_ret, "card and CPU runs saw other rounds")
     check(err <= tol, f"card theta differs from CPU theta: {err} > {tol}")
+
+
+def add_launches(state, counts: dict) -> None:
+    """Add one path phase's launch counts to the running totals."""
+    for name, count in counts.items():
+        state["launches"][name] += count
+
+
+def same_rounds(torch, res, want, name: str, wall_rel_tol=0.0) -> float:
+    """Check that `res` saw the rounds of `want` (returned counts; wall
+    clock identical, or within `wall_rel_tol`) and that theta agrees
+    within THETA_REL_TOL; returns max |delta theta|."""
+    check([h.returned for h in res.history]
+          == [h.returned for h in want.history],
+          f"{name}: returned counts differ from the reference run")
+    wall = np.array([h.wall_clock for h in res.history])
+    wall_ref = np.array([h.wall_clock for h in want.history])
+    if wall_rel_tol == 0.0:
+        check(np.array_equal(wall, wall_ref),
+              f"{name}: wall clock differs from the reference run")
+    else:
+        check(np.allclose(wall, wall_ref, rtol=wall_rel_tol, atol=0.0),
+              f"{name}: wall clock beyond rtol {wall_rel_tol}")
+    th, th_ref = res.theta.float(), want.theta.float()
+    err = float((th - th_ref).abs().max())
+    tol = THETA_REL_TOL * max(1.0, float(th_ref.abs().max()))
+    check(math.isfinite(err) and err <= tol,
+          f"{name}: theta differs by {err} > {tol}")
+    return err
+
+
+def warm_ms(torch, exp) -> float:
+    """ms per round of a second, warm run of the deployment (no eval)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp.run(ROUNDS)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / ROUNDS * 1e3
+
+
+def fused_embed_path(torch, dev, state) -> None:
+    """Path A: fused_embed=True on the raw shards, one
+    rff_linreg_grad_masked launch a round."""
+    from repro_torch.api import build_experiment
+    from repro_torch.data import sharding
+    from repro_torch.kernels import ops
+
+    ds, n = state["ds"], state["xs"].shape[0]
+    # the main path's partition of the raw features (it sorts by label)
+    shards = sharding.sort_and_shard(ds.x_train, ds.y_train, n)
+    per_client = sharding.assign_shards_by_speed(
+        shards, state["nodes"], minibatch=ds.x_train.shape[0] // n)
+    xs_raw = np.stack([c[0] for c in per_client])
+    base = dataclasses.replace(state["spec"], fused_embed=True)
+    runs = {}
+    for scheme in ("coded", "naive", "greedy"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        exp = build_experiment(dataclasses.replace(base, scheme=scheme),
+                               xs_raw, state["ys"], device=dev,
+                               rff_draw=(state["omega"], state["delta"]))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = exp.run(ROUNDS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        add_launches(state, launches)
+        emit({"phase": "fused_embed", "scheme": scheme, "rounds": ROUNDS,
+              "x_raw": list(exp.x.shape), "setup_s": setup_s,
+              "ms_per_round": run_s / ROUNDS * 1e3, "launches": launches,
+              "wall_clock": res.history[-1].wall_clock,
+              "privacy_eps": res.privacy_eps})
+        check(launches["rff_linreg_grad_masked"] == ROUNDS,
+              f"fused {scheme}: rff_linreg_grad_masked launched "
+              f"{launches['rff_linreg_grad_masked']} times in {ROUNDS} "
+              "rounds")
+        check(launches["linreg_grad_masked"] == 0,
+              f"fused {scheme}: linreg_grad_masked launched")
+        check(launches["parity_encode_batched"]
+              == (2 if scheme == "coded" else 0),
+              f"fused {scheme}: parity_encode_batched launched "
+              f"{launches['parity_encode_batched']} times")
+        check(bool(torch.isfinite(res.theta).all()),
+              f"fused {scheme}: theta is not finite")
+        runs[scheme] = (exp, res)
+
+    exp, res = runs["coded"]
+    control_exp, control = state["coded"]
+    # the two-pass control is the main path's coded deployment: the same
+    # raw shards embedded with the same (omega, delta), as these bits show
+    same_phi = torch.equal(exp.embedded_x(), control_exp.x)
+    check(same_phi, "the fused deployment's embedded shards differ from "
+          "the main path's")
+    check(res.privacy_eps == control.privacy_eps,
+          "fused coded: privacy epsilon differs from the two-pass control")
+    err = same_rounds(torch, res, control, "fused coded vs two-pass")
+    # the round allocates its (rows, L, c) residual and (rows, q, c)
+    # gradients, never a (rows, L, q) embedded tensor
+    consts = exp.build_consts()
+    rows, L = consts["gmask"].shape
+    phi_bytes = rows * L * exp.q * 4
+    del consts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ms = warm_ms(torch, exp)
+    peak = torch.cuda.max_memory_allocated() - before
+    emit({"phase": "fused_embed", "scheme": "coded", "control": "main path "
+          "coded (same embedded bits)", "embedded_identical": same_phi,
+          "theta_max_abs_err": err, "warm_ms_per_round": ms,
+          "warm_peak_extra_bytes": peak, "embedded_tensor_bytes": phi_bytes,
+          "warm_ms_per_round_naive": warm_ms(torch, runs["naive"][0]),
+          "warm_ms_per_round_greedy": warm_ms(torch, runs["greedy"][0])})
+    check(peak < phi_bytes / 10, f"fused coded round allocated {peak} bytes "
+          f"beyond its consts; one (rows, L, q) tensor is {phi_bytes}")
+    state["fused"] = (exp, res)
+
+
+def unfused_path(torch, dev, state) -> None:
+    """Path B: fused_coded=False, the coded gradient a separate
+    linreg_grad launch a round."""
+    from repro_torch.api import build_experiment
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp = build_experiment(dataclasses.replace(state["spec"],
+                                               fused_coded=False),
+                           state["xs"], state["ys"], device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = exp.run(ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    err = same_rounds(torch, res, state["coded"][1], "unfused coded")
+    emit({"phase": "unfused", "scheme": "coded", "rounds": ROUNDS,
+          "setup_s": setup_s, "ms_per_round": run_s / ROUNDS * 1e3,
+          "warm_ms_per_round": warm_ms(torch, exp), "launches": launches,
+          "theta_max_abs_err": err,
+          "n_masked": sum(h.n_masked for h in res.history)})
+    for name in ("linreg_grad_masked", "linreg_grad"):
+        check(launches[name] == ROUNDS, f"unfused: {name} launched "
+              f"{launches[name]} times in {ROUNDS} rounds")
+    check(launches["parity_encode_batched"] == 2,
+          "unfused: parity_encode_batched not launched twice")
+
+
+def legacy_path(torch, dev, state) -> None:
+    """Path C: engine="legacy", the per-client oracle, against the main
+    path's batched runs of the same rounds."""
+    import copy
+
+    from repro_torch.api import build_experiment
+    from repro_torch.core.delay_model import sample_round_times
+    from repro_torch.kernels import ops
+
+    for scheme in ("coded", "naive", "greedy"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        exp = build_experiment(
+            dataclasses.replace(state["spec"], scheme=scheme,
+                                engine="legacy"),
+            state["xs"], state["ys"], device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        # the delays the run will draw, redrawn from a copy of its generator
+        times = sample_round_times(exp.nodes, np.asarray(exp.loads, float),
+                                   copy.deepcopy(exp.rng), ROUNDS)
+        t0 = time.perf_counter()
+        res = exp.run(ROUNDS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        add_launches(state, launches)
+        err = same_rounds(torch, res, state["results"][scheme][1],
+                          f"legacy {scheme}", wall_rel_tol=WALL_REL_TOL)
+        if scheme == "coded":
+            loaded = int(((times <= exp.t_star)
+                          & (exp.loads > 0)[None, :]).sum())
+            want = {"linreg_grad": loaded + ROUNDS, "linreg_grad_masked": 0}
+        else:
+            want = {"linreg_grad": 0, "linreg_grad_masked": ROUNDS}
+        emit({"phase": "legacy", "scheme": scheme, "rounds": ROUNDS,
+              "setup_s": setup_s, "ms_per_round": run_s / ROUNDS * 1e3,
+              "launches": launches, "expected": want,
+              "theta_max_abs_err": err})
+        for name, count in want.items():
+            check(launches[name] == count, f"legacy {scheme}: {name} "
+                  f"launched {launches[name]} times, expected {count}")
+
+
+def encode_local_path(torch, dev, state) -> None:
+    """encoding.encode_local client by client with the main path's
+    generators, then aggregate_parity, against the batched encode."""
+    from repro_torch.core import encoding
+    from repro_torch.kernels import ops
+
+    exp = state["coded"][0]
+    g = state["g_stack"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    parity = encoding.aggregate_parity([
+        encoding.encode_local(g[j], exp.x[j], exp.y[j], exp.w_stack[j])
+        for j in range(exp.n)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    err_x, tol_x = max_err(torch, parity.x, exp.parity.x)
+    err_y, tol_y = max_err(torch, parity.y, exp.parity.y)
+    emit({"phase": "encode_local", "clients": exp.n, "launches": launches,
+          "seconds": seconds, "max_abs_err_x": err_x, "tol_x": tol_x,
+          "max_abs_err_y": err_y, "tol_y": tol_y,
+          "tol_reason": f"|loop - batched| <= {REL_TOL} * max(1, "
+          "max|batched|): the same tile per client, summed over clients"})
+    check(launches["parity_encode"] == 2 * exp.n,
+          f"encode_local: parity_encode launched {launches['parity_encode']}"
+          f" times for {exp.n} clients")
 
 
 def kernel_checks(torch, dev, state) -> list:
@@ -330,32 +582,129 @@ def kernel_checks(torch, dev, state) -> list:
         r = torch.baddbmm(y, x, th.expand(x.shape[0], *th.shape), beta=-1)
         return torch.bmm(x.mT, r * mask[:, :, None])
 
+    # kernel 4, the fused round of path A: (x, omega, delta, theta, y,
+    # mask, pphi) of the fused coded deployment, with and without the
+    # parity row, float32 and bfloat16 (the mask stays float32)
+    exp_f, res_f = state["fused"]
+    fc = exp_f.build_consts()
+    fus_main = (fc["gx"], fc["omega"], fc["delta"], res_f.theta, fc["gy"],
+                fc["gmask"], fc["pphi"])
+    nf, Lf, df = fc["gx"].shape
+    rows_f, qf = nf + 1, exp_f.q
+
+    def bf16(args):
+        return tuple(a if a is None or i == 5 else a.to(torch.bfloat16)
+                     for i, a in enumerate(args))
+
+    def no_parity(args):
+        return (*args[:4], args[4][:-1], args[5][:-1], None)
+
+    def fus_edge(LL, dd, qq, cc):
+        mask = (unif(2, LL) > 0.3).float()
+        mask[1] = 1.0 / (3 * LL)
+        return (unif(1, LL, dd), randn(dd, qq, scale=0.3),
+                unif(qq, hi=2 * math.pi), randn(qq, cc, scale=0.3),
+                randn(2, LL, cc), mask, randn(LL, qq, scale=0.05))
+    fus_edges = ([no_parity(fus_main), bf16(fus_main),
+                  bf16(no_parity(fus_main))]
+                 + [fus_edge(*e) for e in ((63, 15, 63, 15), (64, 16, 64, 16),
+                                           (65, 17, 65, 17))])
+    fus_edges.append(bf16(fus_edges[-1]))
+
+    def fus_kern(x, om, de, th, y, mk, pp):
+        return ops.rff_linreg_grad_masked(x, om, de, th, y, mk, parity_phi=pp)
+
+    def fus_plain(x, om, de, th, y, mk, pp):
+        return ref.rff_linreg_grad_masked(x, om, de, th, y, mk, pp,
+                                          n_real=x.shape[0])
+
+    def fus_lib(x, om, de, th, y, mk, pp):
+        nn, LL, dd = x.shape
+        phi = torch.empty((y.shape[0], LL, om.shape[1]), device=x.device)
+        torch.addmm(de, x.view(nn * LL, dd), om,
+                    out=phi[:nn].view(nn * LL, -1))
+        phi[:nn].cos_().mul_(math.sqrt(2.0 / om.shape[1]))
+        if pp is not None:
+            phi[nn:] = pp
+        r = torch.baddbmm(y, phi, th.expand(phi.shape[0], *th.shape),
+                          beta=-1)
+        return torch.bmm(phi.mT, r * mk[:, :, None])
+
+    def fus_extra():
+        """Reruns give the same bits (no atomics); the bf16 variant's time."""
+        a, b = fus_kern(*fus_main), fus_kern(*fus_main)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), "rff_linreg_grad_masked: two launches on "
+              "the same inputs gave other bits")
+        return {"rerun_identical": True,
+                "bf16_ms": time_ms(torch, lambda: fus_kern(*bf16(fus_main)),
+                                   3),
+                "no_parity_ms": time_ms(
+                    torch, lambda: fus_kern(*no_parity(fus_main)), 3)}
+
+    # kernel 5 on path B's coded gradient: the (2400, 2000) parity set
+    lg_main = (exp.parity.x, res.theta, exp.parity.y)
+    mp_, qp_ = exp.parity.x.shape
+    lg_edges = [(randn(mm, qq, scale=0.3), randn(qq, cc, scale=0.3),
+                 randn(mm, cc))
+                for mm, qq, cc in ((63, 127, 15), (64, 128, 16),
+                                   (65, 129, 17))]
+
+    def lg_lib(x, th, y):
+        return x.T @ (x @ th - y)
+
+    # kernel 6 on encode_local: client 0 of the coded deployment
+    pe_main = (g_stack[0], exp.w_stack[0], exp.x[0])
+    pe_edges = [(randn(uu, ll), unif(ll, lo=0.2), randn(ll, qq))
+                for uu, ll, qq in ((63, 15, 63), (64, 16, 64), (65, 17, 65))]
+
+    def pe_lib(g, w, x):
+        return (g * w) @ x
+
+    # (name, kernel, plain, library, main inputs, edge inputs, bytes,
+    #  FLOPs, reps, relative tolerance, extra checks)
     specs = [
         ("rff_embed", lambda *a: ops.rff_embed(*a, q_true=q_true),
          lambda *a: ref.rff_embed(*a, q_true=q_true), rff_lib,
          rff_main, rff_edges,
          4 * (m * d + d * q_true + q_true + m * q_true),
-         2 * m * d * q_true, 10),
+         2 * m * d * q_true, 10, REL_TOL, None),
         ("parity_encode_batched", ops.parity_encode_batched,
          ref.parity_encode_batched, par_lib, par_main, par_edges,
          4 * (n * u * l + n * l + n * l * exp.q + n * u * exp.q),
-         2 * n * u * l * exp.q, 5),
+         2 * n * u * l * exp.q, 5, REL_TOL, None),
         ("linreg_grad_masked", ops.linreg_grad_masked,
          ref.linreg_grad_masked, lin_lib, lin_main, lin_edges,
          4 * (rows * L * q + q * c + rows * L * c + rows * L + rows * q * c),
-         4 * rows * L * q * c, 20),
+         4 * rows * L * q * c, 20, REL_TOL, None),
+        # the embedding counted once, though this design computes it twice
+        ("rff_linreg_grad_masked", fus_kern, fus_plain, fus_lib, fus_main,
+         fus_edges,
+         4 * (nf * Lf * df + df * qf + qf + qf * c + rows_f * Lf * c
+              + rows_f * Lf + Lf * qf + rows_f * qf * c),
+         2 * nf * Lf * df * qf + 4 * rows_f * Lf * qf * c, 3, FUSED_REL_TOL,
+         fus_extra),
+        ("linreg_grad", ops.linreg_grad, ref.linreg_grad, lg_lib, lg_main,
+         lg_edges, 4 * (mp_ * qp_ + 2 * qp_ * c + mp_ * c),
+         4 * mp_ * qp_ * c, 50, REL_TOL, None),
+        ("parity_encode", ops.parity_encode, ref.parity_encode, pe_lib,
+         pe_main, pe_edges, 4 * (u * l + l + l * exp.q + u * exp.q),
+         2 * u * l * exp.q, 20, REL_TOL, None),
     ]
     table = []
-    for (name, kern, plain, lib, main, edges, nbytes, flops,
-         reps), (_, replaces, source) in zip(specs, TPU_KERNELS):
+    for (name, kern, plain, lib, main, edges, nbytes, flops, reps, rel_tol,
+         extra), (_, replaces, source) in zip(specs, TPU_KERNELS):
         checks = []
         for args in [main] + edges:
             got = kern(*args)
             torch.cuda.synchronize()
-            err, tol = max_err(torch, got, plain(*args))
-            checks.append({"shape": [list(a.shape) for a in args],
+            err, tol = max_err(torch, got, plain(*args), rel_tol)
+            checks.append({"shape": [None if a is None else list(a.shape)
+                                     for a in args],
+                           "dtype": str(args[0].dtype).replace("torch.", ""),
                            "max_abs_err": err, "tol": tol})
-        lib_err, _ = max_err(torch, lib(*main), plain(*main))
+        lib_err, _ = max_err(torch, lib(*main), plain(*main), rel_tol)
+        more = extra() if extra is not None else {}
         kernel_ms = time_ms(torch, lambda: kern(*main), reps)
         plain_ms = time_ms(torch, lambda: plain(*main), reps)
         library_ms = time_ms(torch, lambda: lib(*main), reps)
@@ -366,10 +715,12 @@ def kernel_checks(torch, dev, state) -> list:
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library_ms,
                "shape": checks[0]["shape"], "status": "ported, checked"}
-        emit({"phase": "kernel", **row, "kernel_ms": kernel_ms,
+        emit({"phase": "kernel", **row, "kernel_ms": kernel_ms, **more,
               "checks": checks, "library_max_abs_err": lib_err,
-              "tol_reason": f"|kernel - plain| <= {REL_TOL} * "
-              "max(1, max|plain|): float32 sums in another order",
+              "tol_reason": f"|kernel - plain| <= {rel_tol} * "
+              "max(1, max|plain|): float32 sums in another order"
+              + ("; the cosine's argument too (FUSED_REL_TOL)"
+                 if rel_tol != REL_TOL else ""),
               "bytes": nbytes, "flops": flops, "reps": reps})
         table.append(row)
     return table
@@ -404,8 +755,14 @@ def main() -> int:
     t0 = time.perf_counter()
     state = main_path(torch, dev)
     emit({"phase": "main", "seconds": time.perf_counter() - t0})
-    cpu_twin(torch, dev, state)
+    for phase in (cpu_twin, fused_embed_path, unfused_path, legacy_path,
+                  encode_local_path):
+        t0 = time.perf_counter()
+        phase(torch, dev, state)
+        emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     table = kernel_checks(torch, dev, state)
+    emit({"phase": "kernel", "seconds": time.perf_counter() - t0})
     emit({"kernels": table, "not_yet_ported": [
         {"name": name, "replaces": where, "status": "not yet ported",
          "path": path} for name, where, path in NOT_YET_PORTED]})

@@ -33,17 +33,21 @@ __all__ = [
 def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,
                      nodes: Optional[list] = None,
                      rng: Optional[np.random.Generator] = None,
-                     device=None, parity_generators=None) -> Experiment:
+                     device=None, parity_generators=None,
+                     rff_draw=None) -> Experiment:
     """Build a runnable `Experiment` from a spec and client data.
 
     spec: an `ExperimentSpec` (or its `to_dict()` form, revived here);
-    x_stack: (n, l, q) RFF-embedded client features; y_stack: (n, l, c)
-    targets, as NumPy arrays or tensors.  `nodes` / `rng` override the
+    x_stack: (n, l, q) RFF-embedded client features, or (n, l, d) RAW ones
+    with ``spec.fused_embed``; y_stack: (n, l, c) targets, as NumPy arrays
+    or tensors.  `nodes` / `rng` override the
     delay network and the host RNG (both default to the spec's seeds).
     `device` defaults to the GPU ("cuda"); "cpu" runs the plain versions
     of the kernels.  `parity_generators` (n, u, l) replaces the coded
     family's generator draw — ``repro_torch.carry`` turns the reference's
-    key chain into one.
+    key chain into one.  `rff_draw` = (omega (d, q), delta (q,)) replaces
+    the fused_embed path's own draw from ``spec.rff`` — e.g. the output of
+    ``repro_torch.carry.rff_from_reference`` — and is refused otherwise.
 
     A spec that asks for a feature the port does not have yet raises
     ``NotImplementedError`` naming it.
@@ -58,4 +62,5 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,
     # validate the scheme against the live registry up front
     schemes.get_scheme(spec.resolved_scheme)
     return Experiment(spec, x_stack, y_stack, nodes=nodes, rng=rng,
-                      device=device, parity_generators=parity_generators)
+                      device=device, parity_generators=parity_generators,
+                      rff_draw=rff_draw)

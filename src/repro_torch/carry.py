@@ -6,7 +6,10 @@ make both packages compute the same thing, a caller draws with the
 reference, hands the draws over as NumPy arrays, and these functions turn
 them into the port's tensors:
 
-  * `rff_from_reference`: (Omega, delta) of ``repro.core.rff.rff_params``;
+  * `rff_from_reference`: (Omega, delta) of ``repro.core.rff.rff_params``,
+    for ``rff_transform`` or for ``build_experiment(..., rff_draw=...)``
+    (the fused_embed path, where the reference's ``Experiment`` draws them
+    from ``spec.rff`` itself);
   * `generators_from_reference`: the (n, u, l) stack of generator matrices
     that ``repro.core.schemes.CodedScheme.setup`` draws from its key chain
     (``PRNGKey(fl.seed + 99)``, split client after client), for

@@ -5,12 +5,18 @@ The same frozen dataclasses as ``repro.config`` (``FLConfig``,
 spec's ``to_dict()`` equals the reference's and a spec the reference wrote
 as JSON revives here with ``ExperimentSpec.from_dict``.
 
-The port runs the main path only.  A spec may still name a feature the port
-does not have yet (channel dynamics, fault injection, the hierarchical
-tier, a client mesh, secure aggregation, the adaptive schemes,
-``fused_embed``, ``fused_coded=False``, ``engine="legacy"``): the spec holds
-it so that it round-trips, and ``build_experiment`` raises
+The port runs the stationary flat engine: the batched engine with the
+fused or unfused coded round (``fused_coded``), with raw features embedded
+in the gradient kernel (``fused_embed``), and the legacy per-client oracle
+(``engine="legacy"``).  A spec may still name a feature the port does not
+have yet (channel dynamics, fault injection, the hierarchical tier, a
+client mesh, secure aggregation, the adaptive schemes, checkpointed runs):
+the spec holds it so that it round-trips, and ``build_experiment`` raises
 ``NotImplementedError`` naming the feature (`unsupported_features`).
+Combinations the reference refuses when a spec is made (``fused_embed``
+with the legacy engine or a mesh, the legacy engine with checkpoints,
+channel dynamics, faults or the hierarchical tier) raise ``ValueError``
+here too.
 """
 from __future__ import annotations
 
@@ -144,11 +150,32 @@ class ExperimentSpec:
                 or self.checkpoint_every < 0):
             raise ValueError(f"checkpoint_every must be an int >= 0, "
                              f"got {self.checkpoint_every!r}")
-        if self.fused_embed and self.rff is None:
+        if self.checkpoint_every > 0 and self.engine == "legacy":
             raise ValueError(
-                "fused_embed=True requires an RFFConfig (`rff`): the "
-                "fused kernel derives q and the shared Omega/delta "
-                "frequencies from it")
+                "checkpoint_every requires the batched engine; the legacy "
+                "per-client oracle has no block-structured run state")
+        if self.fused_embed:
+            if self.rff is None:
+                raise ValueError(
+                    "fused_embed=True requires an RFFConfig (`rff`): the "
+                    "fused kernel derives q and the shared Omega/delta "
+                    "frequencies from it")
+            if self.engine == "legacy":
+                raise ValueError(
+                    "fused_embed requires the batched engine; the legacy "
+                    "per-client oracle consumes pre-embedded features")
+            if self.mesh is not None:
+                raise ValueError(
+                    "fused_embed does not support client-mesh sharding yet")
+        if self.engine == "legacy":
+            if self.channel_profile is not None or self.channel_params:
+                raise ValueError(
+                    "channel dynamics require the batched engine; the "
+                    "legacy per-client oracle has no traced-delay path")
+            if self.fault_profile is not None or self.fault_params:
+                raise ValueError(
+                    "fault injection requires the batched engine; the "
+                    "legacy per-client oracle has no fault path")
         if self.run_id is not None and not (
                 isinstance(self.run_id, str)
                 and re.fullmatch(r"[A-Za-z0-9][A-Za-z0-9._-]{0,127}",
@@ -169,6 +196,18 @@ class ExperimentSpec:
                 or not 0.0 < float(self.sample_fraction) <= 1.0:
             raise ValueError(f"sample_fraction must lie in (0, 1], "
                              f"got {self.sample_fraction!r}")
+        if self.hier_active:
+            hier = (f"hier_shards={self.hier_shards}, "
+                    f"sample_fraction={self.sample_fraction}")
+            if self.engine == "legacy":
+                raise ValueError(
+                    f"the hierarchical tier ({hier}) requires the batched "
+                    "engine; the legacy per-client oracle has no sharded "
+                    "round")
+            if self.fused_embed:
+                raise ValueError(
+                    f"the hierarchical tier ({hier}) consumes embedded "
+                    "client blocks; fused_embed is not supported")
 
     @property
     def hier_active(self) -> bool:
@@ -236,10 +275,6 @@ def unsupported_features(spec: ExperimentSpec) -> list[str]:
          "the hierarchical tier (hier_shards/sample_fraction)"),
         (spec.mesh is not None, "client-mesh sharding (mesh)"),
         (spec.secure_aggregation, "secure aggregation"),
-        (spec.fused_embed, "the fused embed->gradient path (fused_embed)"),
-        (not spec.fused_coded,
-         "the unfused coded gradient (fused_coded=False)"),
-        (spec.engine == "legacy", "the legacy per-client engine"),
         (spec.checkpoint_every > 0, "checkpointed runs (checkpoint_every)"),
     )
     return [name for asked, name in checks if asked]

@@ -59,6 +59,17 @@ class LocalParity:
     y: torch.Tensor    # (u, c), or (n, u, c) stacked
 
 
+def encode_local(g, x_hat, y, w) -> LocalParity:
+    """Local parity dataset (X~_j, Y~_j) = (G_j W_j X^_j, G_j W_j Y_j) of
+    one client: two ``parity_encode`` launches.
+
+    g: (u, l) generator (`generator_matrix`, or the reference's carried
+    over, in place of its key); x_hat: (l, q); y: (l, c); w: (l,).
+    """
+    return LocalParity(x=ops.parity_encode(g, w, x_hat),
+                       y=ops.parity_encode(g, w, y))
+
+
 def encode_local_batched(g_stack, x_stack, y_stack, w_stack) -> LocalParity:
     """All-clients parity encode: two ``parity_encode_batched`` launches,
     one for the features and one for the labels.
@@ -75,3 +86,9 @@ def encode_local_batched(g_stack, x_stack, y_stack, w_stack) -> LocalParity:
 def aggregate_parity_stacked(parity: LocalParity) -> LocalParity:
     """Global parity set from a stacked (n, u, ·) LocalParity (eq. 20)."""
     return LocalParity(x=parity.x.sum(dim=0), y=parity.y.sum(dim=0))
+
+
+def aggregate_parity(parities: list[LocalParity]) -> LocalParity:
+    """Global parity set = sum over the clients' parity sets (eq. 20)."""
+    return LocalParity(x=torch.stack([p.x for p in parities]).sum(dim=0),
+                       y=torch.stack([p.y for p in parities]).sum(dim=0))

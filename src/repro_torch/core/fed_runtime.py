@@ -1,7 +1,12 @@
-"""Federated-learning runtime of the port: the flat batched engine's main path.
+"""Federated-learning runtime of the port: the flat engine, stationary delays.
 
-The counterpart of ``repro.core.fed_runtime`` for stationary delays, one
-device and the fused coded round (``fused_coded=True``):
+The counterpart of ``repro.core.fed_runtime`` for stationary delays and one
+device.  The batched engine (``engine="batched"``) runs the fused coded
+round (``fused_coded=True``: the parity set is one more row of the round's
+single gradient launch) or the unfused one (``fused_coded=False``: a
+separate ``linreg_grad`` launch over the parity set, guarded), over
+embedded client features or, with ``fused_embed=True``, over RAW ones that
+the ``rff_linreg_grad_masked`` kernel embeds tile by tile every round:
 
   * the scheme's setup runs on the host (allocation, subsets, weights) and
     on the device (parity encode, dense client tensors);
@@ -12,9 +17,16 @@ device and the fused coded round (``fused_coded=True``):
   * the reference's ``lax.scan`` becomes a Python loop over the rounds,
     one block for the whole horizon (the reference's
     ``checkpoint_every=0``).  Each round is one ``linreg_grad_masked``
-    launch over the dense (rows, L, q) tensor, the returned-mask sum and
-    the guarded SGD update, all on the device; the host reads the
+    launch over the dense (rows, L, q) tensor (``rff_linreg_grad_masked``
+    over the raw (n, L, d) one with ``fused_embed``), the returned-mask sum
+    and the guarded SGD update, all on the device; the host reads the
     per-round records back once, after the loop.
+
+``engine="legacy"`` is the reference's per-client oracle: a host loop with
+no guards, one ``linreg_grad`` launch per returned loaded client plus one
+for the coded gradient (coded), or one mask-free ``linreg_grad_batched``
+launch (naive, greedy, ideal), on delays drawn by the same
+``sample_round_times`` call from the same generator as the batched run.
 
 Delays go to float32 before the step and deadlines are compared in float32,
 as in the reference, so returned counts and the wall clock
@@ -36,11 +48,12 @@ import numpy as np
 import torch
 
 from repro_torch.config import ExperimentSpec, unsupported_features
-from repro_torch.core import aggregation, schemes
+from repro_torch.core import aggregation, rff, schemes
 from repro_torch.core.delay_model import (mec_network, packet_bits,
                                           sample_round_times, scale_tau)
 from repro_torch.core.load_allocation import vectorized_grid_width
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 
 #: divergence-guard learning-rate backoff per skipped round
 LR_BACKOFF = 0.5
@@ -99,9 +112,13 @@ def guard_and_sum(g, ret, guard: bool):
 def build_step(static: dict):
     """One round ``step(consts, carry, inp) -> (carry, out)``.
 
-    `static`: scheme (step kind), n, n_wait, l2, m, l, guard.
+    `static`: scheme (step kind), n, n_wait, l2, m, l, guard, fused,
+    fused_embed.
     `consts`: gx (rows, L, q), gy (rows, L, c), gmask (rows, L), ret_tail
-    (rows - n,); coded adds t_star () and active (n,), ideal t_ideal ().
+    (rows - n,); coded adds t_star () and active (n,) and, when unfused,
+    par_x (u, q) / par_y (u, c); ideal adds t_ideal ().  With fused_embed
+    gx is the raw (n, L, d) tensor, and omega (d, q), delta (q,) and, on
+    the fused coded round, pphi (L, q) come along.
     ``carry`` is ``(theta, lr_scale)``; ``inp`` is ``(t_row, lr)``, the
     round's float32 delays (n,) and learning rate.  ``out`` is
     ``(t_round, n_ret, n_masked, skipped)``, 0-dim tensors.
@@ -113,6 +130,8 @@ def build_step(static: dict):
     m = static["m"]
     l = static["l"]
     guard = static["guard"]
+    fused = static["fused"]
+    fused_embed = static["fused_embed"]
 
     def step(consts, carry, inp):
         theta, lr_scale = carry
@@ -145,9 +164,22 @@ def build_step(static: dict):
         # ret_tail covers the pseudo-client rows: the always-active parity
         # row of the fused coded tensor
         ret = torch.cat([ret_real.to(torch.float32), consts["ret_tail"]])
-        g = aggregation.batched_client_gradients(
-            consts["gx"], consts["gy"], theta, mask=consts["gmask"])
+        if fused_embed:
+            g = aggregation.fused_embed_client_gradients(
+                consts["gx"], consts["gy"], consts["omega"], consts["delta"],
+                theta, mask=consts["gmask"], parity_phi=consts.get("pphi"))
+        else:
+            g = aggregation.batched_client_gradients(
+                consts["gx"], consts["gy"], theta, mask=consts["gmask"])
         g_sum, n_masked = guard_and_sum(g, ret, guard)
+        if scheme == "coded" and not fused:
+            g_par = aggregation.coded_gradient(consts["par_x"],
+                                               consts["par_y"], theta)
+            if guard:
+                par_ok = torch.isfinite(g_par).all()
+                n_masked = n_masked + (~par_ok).to(torch.int32)
+                g_par = torch.where(par_ok, g_par, 0.0)
+            g_sum = g_sum + g_par
         theta_upd = theta - (lr * lr_scale) * (g_sum / denom + l2 * theta)
         # always-on divergence guard: a non-finite iterate is never
         # committed — the round is skipped (model held), the lr backs off
@@ -164,13 +196,16 @@ class Experiment:
     """One runnable FL deployment, built from a frozen `ExperimentSpec`.
 
     Clients hold equally sized local minibatches of RFF-embedded data
-    (x_stack: (n, l, q), y_stack: (n, l, c)); the delay network follows
-    paper §V-A.  The spec names a registered scheme
-    (``repro_torch.core.schemes``) that owns the deployment setup.
+    (x_stack: (n, l, q), y_stack: (n, l, c)) or, with ``spec.fused_embed``,
+    of RAW features (x_stack: (n, l, d)), q then coming from ``spec.rff``;
+    the delay network follows paper §V-A.  The spec names a registered
+    scheme (``repro_torch.core.schemes``) that owns the deployment setup.
 
     ``device`` defaults to the GPU; pass ``"cpu"`` to run the plain
     versions of the kernels.  ``parity_generators`` (n, u, l) replaces the
-    coded family's own generator draw (see ``repro_torch.carry``).
+    coded family's own generator draw, ``rff_draw`` = (omega (d, q),
+    delta (q,)) the fused_embed path's own draw from ``spec.rff`` (see
+    ``repro_torch.carry``).
 
     Prefer the entrypoint ``repro_torch.api.build_experiment``.
     """
@@ -178,7 +213,7 @@ class Experiment:
     def __init__(self, spec: ExperimentSpec, x_stack, y_stack, *,
                  nodes: Optional[list] = None,
                  rng: Optional[np.random.Generator] = None,
-                 device=None, parity_generators=None):
+                 device=None, parity_generators=None, rff_draw=None):
         if not isinstance(spec, ExperimentSpec):
             raise TypeError(
                 f"spec must be an ExperimentSpec, got {type(spec).__name__}"
@@ -192,6 +227,9 @@ class Experiment:
         fl_cfg = spec.resolved_fl()      # delay-profile knobs applied
         self.device = resolve_device(device)
         self.alloc_backend = spec.alloc_backend
+        self.engine = spec.engine
+        self.fused_coded = spec.fused_coded
+        self.fused_embed = spec.fused_embed
         self.nonfinite_guard = bool(spec.nonfinite_guard)
         self.scheme = spec.resolved_scheme
         self.scheme_obj = schemes.get_scheme(self.scheme)
@@ -207,7 +245,18 @@ class Experiment:
             None if parity_generators is None else torch.as_tensor(
                 parity_generators, dtype=torch.float32,
                 device=self.device).contiguous())
-        self.n, self.l, self.q = self.x.shape
+        if self.fused_embed:
+            self.n, self.l, self.d = self.x.shape
+            self.q = spec.rff.q
+            self.omega, self.delta = self._rff_params(spec, rff_draw)
+        else:
+            if rff_draw is not None:
+                raise ValueError("rff_draw replaces the fused_embed path's "
+                                 "(Omega, delta); the spec has "
+                                 "fused_embed=False")
+            self.n, self.l, self.q = self.x.shape
+            self.d = None
+            self.omega = self.delta = None
         self.c = self.y.shape[-1]
         self.m = self.n * self.l
         self.steps_per_epoch = spec.steps_per_epoch
@@ -229,10 +278,36 @@ class Experiment:
         self.privacy_eps = self.scheme_obj.privacy_budget(self)
         self._consts = None     # built lazily on the first run
 
+    def _rff_params(self, spec: ExperimentSpec, rff_draw):
+        """(Omega (d, q), delta (q,)) of the fused_embed path: `rff_draw`
+        where given, else the port's own draw from ``spec.rff``."""
+        if rff_draw is None:
+            return rff.rff_params(spec.rff, self.d, device=self.device)
+        omega, delta = (torch.as_tensor(t, dtype=torch.float32,
+                                        device=self.device).contiguous()
+                        for t in rff_draw)
+        if (tuple(omega.shape) != (self.d, self.q)
+                or tuple(delta.shape) != (self.q,)):
+            raise ValueError(
+                f"rff_draw has shapes {tuple(omega.shape)} and "
+                f"{tuple(delta.shape)}; the deployment needs (d, q) = "
+                f"{(self.d, self.q)} and (q,) = {(self.q,)}")
+        return omega, delta
+
     @property
     def n_wait(self) -> int:
         """Greedy wait count: the fastest (1 - psi) * n clients."""
         return max(1, int(math.ceil((1.0 - self.fl.psi) * self.n)))
+
+    def embedded_x(self) -> torch.Tensor:
+        """Transient (n, l, q) embedded stack for setup only (parity
+        encoding, privacy accounting): one ``rff_embed`` launch.  The
+        fused_embed round never makes it: phi is computed tile by tile
+        inside the gradient kernel every round."""
+        if not self.fused_embed:
+            raise ValueError("embedded_x() is only meaningful with "
+                             "fused_embed=True (x is already embedded)")
+        return ops.rff_embed_batched(self.x, self.omega, self.delta)
 
     def _pick_alloc_backend(self) -> str:
         """Resolve alloc_backend="auto" exactly as the reference does."""
@@ -251,6 +326,9 @@ class Experiment:
             "ret_tail": torch.tensor(tail, dtype=torch.float32,
                                      device=self.device),
         }
+        if self.fused_embed:
+            consts["omega"] = self.omega
+            consts["delta"] = self.delta
         consts.update(self.scheme_obj.extra_consts(self))
         return consts
 
@@ -264,6 +342,8 @@ class Experiment:
             "m": float(self.m),
             "l": float(self.l),
             "guard": self.nonfinite_guard,
+            "fused": self.fused_coded,
+            "fused_embed": self.fused_embed,
         }
 
     def _lr(self, epoch: int) -> float:
@@ -291,6 +371,13 @@ class Experiment:
         iterations = int(iterations)
         if iterations < 1:
             raise ValueError(f"iterations={iterations} must be >= 1")
+        if self.engine == "legacy":
+            times = sample_round_times(self.nodes,
+                                       np.asarray(self.loads, float),
+                                       self.rng, iterations)
+            return self._run_legacy(iterations, times,
+                                    self._lr_schedule(iterations), eval_fn,
+                                    eval_every)
         if self._consts is None:
             self._consts = self.build_consts()
         consts = self._consts
@@ -330,3 +417,60 @@ class Experiment:
         return FedResult(theta=carry[0], history=history, t_star=self.t_star,
                          loads=self.loads, setup_time=self.setup_time,
                          privacy_eps=self.privacy_eps, health=health)
+
+    # ---------------------------------------------------------- legacy engine
+    def _run_legacy(self, iterations: int, times_all: np.ndarray,
+                    lrs: np.ndarray, eval_fn, eval_every: int) -> FedResult:
+        """The reference's per-client loop, the oracle the batched engine
+        is tested against: deadlines on the host in float64, no guards
+        (``RoundLog``'s zero counters, no ``health``)."""
+        theta = torch.zeros((self.q, self.c), dtype=torch.float32,
+                            device=self.device)
+        wall = self.setup_time
+        history: list[RoundLog] = []
+        for it in range(iterations):
+            times = times_all[it]
+            if self.step_kind == "naive":
+                returned = np.ones(self.n, dtype=bool)
+                t_round = float(np.max(times))
+                denom = self.m
+            elif self.step_kind == "greedy":
+                order = np.argsort(times)
+                returned = np.zeros(self.n, dtype=bool)
+                returned[order[:self.n_wait]] = True
+                t_round = float(times[order[self.n_wait - 1]])
+                denom = int(returned.sum()) * self.l
+            elif self.step_kind == "coded":
+                returned = times <= self.t_star
+                t_round = float(self.t_star)
+                denom = self.m
+            elif self.step_kind == "ideal":
+                returned = np.ones(self.n, dtype=bool)
+                t_round = float(self.t_ideal)
+                denom = self.m
+            else:
+                raise ValueError(self.step_kind)
+
+            if self.step_kind == "coded":
+                total = aggregation.coded_gradient(
+                    self.parity.x, self.parity.y, theta, pnr_c=0.0)
+                for j in range(self.n):
+                    if returned[j] and self.loads[j] > 0:
+                        total = total + aggregation.client_gradient(
+                            self._sub_x[j], self._sub_y[j], theta)
+                g_m = total / denom + self.train.l2_reg * theta
+            else:
+                g_all = aggregation.batched_client_gradients(self.x, self.y,
+                                                             theta)
+                g_m = (aggregation.masked_gradient_sum(g_all, returned)
+                       / denom + self.train.l2_reg * theta)
+            theta = theta - float(lrs[it]) * g_m
+            wall += t_round
+            loss = acc = float("nan")
+            if eval_fn is not None and (it % eval_every == 0
+                                        or it == iterations - 1):
+                loss, acc = (float(v) for v in eval_fn(theta))
+            history.append(RoundLog(it, wall, int(returned.sum()), loss, acc))
+        return FedResult(theta=theta, history=history, t_star=self.t_star,
+                         loads=self.loads, setup_time=self.setup_time,
+                         privacy_eps=self.privacy_eps)

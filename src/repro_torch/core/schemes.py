@@ -147,8 +147,11 @@ class CodedScheme(Scheme):
                 f"the deployment needs (n, u, l) = "
                 f"{(exp.n, exp.u, exp.l)}")
         exp.w_stack = torch.from_numpy(w_stack).to(exp.device)
-        # all n local parity sets: two parity_encode_batched launches
-        stacked = encoding.encode_local_batched(g_stack, exp.x, exp.y,
+        # all n local parity sets: two parity_encode_batched launches.  With
+        # fused_embed the clients hold RAW features: the encode runs over a
+        # transient (n, l, q) embed that only this setup step sees
+        x_enc = exp.embedded_x() if exp.fused_embed else exp.x
+        stacked = encoding.encode_local_batched(g_stack, x_enc, exp.y,
                                                 exp.w_stack)
         exp.parity = encoding.aggregate_parity_stacked(stacked)
         # one-time parity upload overhead: clients upload u*(q+c) scalars
@@ -157,6 +160,12 @@ class CodedScheme(Scheme):
         exp.setup_time = max(
             nd.tau / packet_bits(fl, exp.q * exp.c) * bits / (1.0 - nd.p)
             for nd in exp.nodes)
+        # ragged per-client subsets: only the legacy oracle reads them
+        if exp.engine == "legacy":
+            exp._sub_x = [exp.x[j][torch.from_numpy(exp.processed_idx[j]).to(
+                exp.device)] for j in range(exp.n)]
+            exp._sub_y = [exp.y[j][torch.from_numpy(exp.processed_idx[j]).to(
+                exp.device)] for j in range(exp.n)]
         # dense mask-padded (n, l_max, ·) view: the chosen indices of each
         # row, sorted ascending, with unchosen slots pushed past the end
         # by an `l` sentinel
@@ -172,24 +181,44 @@ class CodedScheme(Scheme):
         exp._grad_mask = mask                     # (n, l_max) row validity
 
     def grad_tensors(self, exp):
-        gx, gy, gmask = aggregation.fused_client_parity_tensors(
-            exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask,
-            exp.parity.x, exp.parity.y, pnr_c=0.0)
+        if not exp.fused_coded:
+            # the coded gradient is a separate launch over par_x / par_y
+            return exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask, []
+        if exp.fused_embed:
+            # raw client rows; the embedded parity block rides in as the
+            # `pphi` const the fused kernel reads on the parity row
+            gx, gy, gmask, exp._pphi_const = \
+                aggregation.fused_embed_client_parity_tensors(
+                    exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask,
+                    exp.parity.x, exp.parity.y, pnr_c=0.0)
+        else:
+            gx, gy, gmask = aggregation.fused_client_parity_tensors(
+                exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask,
+                exp.parity.x, exp.parity.y, pnr_c=0.0)
         return gx, gy, gmask, [1.0]   # the always-active parity pseudo-row
 
     def extra_consts(self, exp) -> dict:
-        return {
+        consts = {
             "t_star": torch.tensor(exp.t_star, dtype=torch.float32,
                                    device=exp.device),
             "active": torch.from_numpy(
                 (exp.loads > 0).astype(np.float32)).to(exp.device),
         }
+        if exp.fused_coded and exp.fused_embed:
+            consts["pphi"] = exp._pphi_const
+        if not exp.fused_coded:
+            consts["par_x"] = exp.parity.x
+            consts["par_y"] = exp.parity.y
+        return consts
 
     def privacy_budget(self, exp) -> float:
         """Worst-client eps-MI-DP budget (bits) of sharing u parity rows
         (paper Appendix F, eq. 62), on the host in float64 as in the
-        reference."""
-        x = exp.x.cpu().numpy()
+        reference.  What leaks is the EMBEDDED data the parity rows are
+        built from, so fused_embed runs account over the same transient
+        embeds the parity encode consumed."""
+        x_src = exp.embedded_x() if exp.fused_embed else exp.x
+        x = x_src.cpu().numpy()
         return float(max(privacy.mi_dp_budget(x[j], exp.u)
                          for j in range(exp.n)))
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
-with a plain C interface, ``build/repro_torch/<name>-<digest>.so`` under the
-repository root, and is loaded with ``ctypes``.  The digest covers the
+Each ``csrc/<library>.cu`` compiles with ``nvcc`` into its own shared
+library with a plain C interface, ``build/repro_torch/<library>-<digest>.so``
+under the repository root, and is loaded with ``ctypes``; a library may
+hold several entry points (`SIGNATURES`).  The digest covers the
 sources and the flags, so an edited source is rebuilt and an unchanged one
 is reused.  Nothing is built at import: the first call of a kernel on a
 CUDA tensor builds all of them (``build_all``), one ``nvcc`` per source,
@@ -24,16 +25,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each library's entry point: (symbol, argtypes)
+_FUSED_ARGS = (_P,) * 9 + (_I,) * 7 + (_P,)
+# C signature of each entry point: symbol -> (library, argtypes)
 SIGNATURES = {
-    "rff_embed": ("rff_embed_f32", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    "parity_encode": ("parity_encode_batched_f32",
-                      (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
-    "linreg_grad": ("linreg_grad_masked_f32",
-                    (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "rff_embed_f32": ("rff_embed", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "parity_encode_batched_f32": ("parity_encode",
+                                  (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "parity_encode_f32": ("parity_encode", (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "linreg_grad_masked_f32": ("linreg_grad",
+                               (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "linreg_grad_f32": ("linreg_grad", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "rff_linreg_grad_masked_f32": ("rff_linreg_grad", _FUSED_ARGS),
+    "rff_linreg_grad_masked_bf16": ("rff_linreg_grad", _FUSED_ARGS),
 }
+LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in SIGNATURES.values()))
 
-_loaded: dict = {}   # name -> ctypes function of a loaded library
+_libs: dict = {}     # library -> loaded ctypes.CDLL
+_loaded: dict = {}   # symbol -> ctypes function
 #: per-library compiler output (``-Xptxas -v``: registers, shared memory,
 #: spills) of the builds this process ran
 build_logs: dict[str, str] = {}
@@ -64,7 +72,7 @@ def build_all() -> dict[str, Path]:
     the compiler's output if any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {name: _target(name) for name in SIGNATURES}
+    targets = {name: _target(name) for name in LIBRARIES}
     procs = {}
     for name, out in targets.items():
         if out.exists():
@@ -88,14 +96,15 @@ def build_all() -> dict[str, Path]:
     return targets
 
 
-def kernel(name: str):
-    """The ctypes entry point of library `name`, building on first use."""
-    fn = _loaded.get(name)
+def kernel(symbol: str):
+    """The ctypes entry point `symbol`, building on first use."""
+    fn = _loaded.get(symbol)
     if fn is None:
-        path = build_all()[name]
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        lib, argtypes = SIGNATURES[symbol]
+        if lib not in _libs:
+            _libs[lib] = ctypes.CDLL(str(build_all()[lib]))
+        fn = getattr(_libs[lib], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[symbol] = fn
     return fn

@@ -3,8 +3,12 @@
 //   g_b = X_b^T diag(mask_b) (X_b theta - Y_b)
 //   X: (n, L, q), theta: (q, c), Y: (n, L, c), mask: (n, L) -> g: (n, q, c)
 //
-// Replaces the Pallas TPU kernel `linreg_grad_masked` in
-// src/repro/kernels/linreg_grad.py.  There the residual of a row block is
+// A null mask weighs every row 1 (`linreg_grad_batched`, no tensor of ones
+// is made), and `linreg_grad_f32` is the single-matrix gradient
+// g = X^T (X theta - Y) as n = 1 with a null mask.
+//
+// Replaces the Pallas TPU kernels `linreg_grad_masked` and `linreg_grad`
+// in src/repro/kernels/linreg_grad.py.  There the residual of a row block is
 // formed once (at j == 0) and X_blk^T R is accumulated into an output block
 // that the sequential TPU grid revisits.  Hopper runs blocks in parallel and
 // in no order, so nothing can carry from one block to the next; the work is
@@ -75,7 +79,7 @@ residual_kernel(const float* __restrict__ x, const float* __restrict__ theta_t,
     for (int cc = 0; cc < CMAX; ++cc)
       if (cc == lane) v = acc[cc];
     const long long o = row * c + c0 + lane;
-    r[o] = (v - y[o]) * mask[row];
+    r[o] = (v - y[o]) * (mask != nullptr ? mask[row] : 1.0f);
   }
 }
 
@@ -123,8 +127,9 @@ xtr_kernel(const float* __restrict__ x, const float* __restrict__ r,
 }  // namespace
 
 // x: (n, L, q), theta_t: (c, q) (theta transposed), y: (n, L, c),
-// mask: (n, L), r: (n, L, c) scratch, g: (n, q, c); float32, contiguous, on
-// the device of `stream`.  Returns the first failing launch's cudaError_t.
+// mask: (n, L) or nullptr (every row weighs 1), r: (n, L, c) scratch,
+// g: (n, q, c); float32, contiguous, on the device of `stream`.  Returns the
+// first failing launch's cudaError_t.
 extern "C" int linreg_grad_masked_f32(const float* x, const float* theta_t,
                                       const float* y, const float* mask,
                                       float* r, float* g, int n, int L, int q,
@@ -140,4 +145,15 @@ extern "C" int linreg_grad_masked_f32(const float* x, const float* theta_t,
   const dim3 xtr_grid((q + XTR_THREADS - 1) / XTR_THREADS, c_chunks, n);
   xtr_kernel<<<xtr_grid, XTR_THREADS, 0, stream>>>(x, r, g, L, q, c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// g = x^T (x theta - y): x: (m, q), theta_t: (c, q), y: (m, c), r: (m, c)
+// scratch, g: (q, c).  At the parity set's shape (2400, 2000), c = 10, the
+// xtr pass has only 16 blocks (one per 128-column q tile): a first kernel
+// that is right; splitting L over more blocks is later work.
+extern "C" int linreg_grad_f32(const float* x, const float* theta_t,
+                               const float* y, float* r, float* g, int m,
+                               int q, int c, cudaStream_t stream) {
+  return linreg_grad_masked_f32(x, theta_t, y, nullptr, r, g, 1, m, q, c,
+                                stream);
 }

@@ -1,4 +1,5 @@
-// Batched float32 GEMM tile shared by rff_embed.cu and parity_encode.cu.
+// Batched float32 GEMM tile shared by rff_embed.cu, parity_encode.cu and
+// rff_linreg_grad.cu.
 //
 //   C_b[i, j] = epi(j, sum_k A_b[i, k] * s_b[k] * B_b[k, j])
 //
@@ -13,9 +14,13 @@
 //
 // Plain float32 FFMA, no tensor cores and no TF32: the reference computes
 // in float32.  Each output is a sum over k in ascending order, so a rerun
-// gives the same bits.
+// gives the same bits, and any kernel that builds its tile with
+// `tile_product` gets the same bits for the same row, column and inputs.
+// A and B may be float or __nv_bfloat16 (widened to float as they are
+// staged); the sums are float32 either way.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tiled {
@@ -29,30 +34,31 @@ constexpr int ROWS_T = BM / TM;          // 16 thread rows
 constexpr int COLS_T = BN / TN;          // 16 thread columns
 constexpr int THREADS = ROWS_T * COLS_T;  // 256
 
-template <class Epilogue>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const float* __restrict__ A, const float* __restrict__ s,
-            const float* __restrict__ B, float* __restrict__ C,
-            int M, int N, int K, long long stride_a, long long stride_s,
-            long long stride_b, long long stride_c, Epilogue epi) {
-  // A tile stored transposed (As[k][i]); the +4 pad spreads the column
-  // stores of one warp over the banks
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
-  const long long b = blockIdx.z;
-  A += b * stride_a;
-  B += b * stride_b;
-  C += b * stride_c;
-  if (s != nullptr) s += b * stride_s;
+// Shared-memory staging of one K step.  The A tile is stored transposed
+// (As[k][i]); the +4 pad spreads the column stores of one warp over the
+// banks.
+struct Smem {
+  float As[BK][BM + 4];
+  float Bs[BK][BN];
+};
 
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+// acc[r][c] = sum_k A[row0 + tr + r*ROWS_T, k] * s[k] * B[k, col0 + tc +
+// c*COLS_T] for this thread's (tr, tc) = (tid / COLS_T, tid % COLS_T), k
+// ascending.  Every thread of the block calls it: it synchronises, and it
+// returns with the block synchronised and `sm` free for reuse.
+template <class T>
+__device__ __forceinline__ void tile_product(
+    const T* __restrict__ A, const float* __restrict__ s,
+    const T* __restrict__ B, int M, int N, int K, int row0, int col0,
+    Smem& sm, float (&acc)[TM][TN]) {
   const int tid = threadIdx.x;
   const int tr = tid / COLS_T;
   const int tc = tid % COLS_T;
-
-  float acc[TM][TN];
 #pragma unroll
   for (int r = 0; r < TM; ++r)
 #pragma unroll
@@ -67,10 +73,10 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ s,
       const int gk = k0 + kk;
       float v = 0.0f;
       if (gi < M && gk < K) {
-        v = A[(long long)gi * K + gk];
+        v = to_float(A[(long long)gi * K + gk]);
         if (s != nullptr) v *= s[gk];
       }
-      As[kk][i] = v;
+      sm.As[kk][i] = v;
     }
     // B tile: 64 neighbouring threads read one row segment
     for (int e = tid; e < BK * BN; e += THREADS) {
@@ -78,7 +84,8 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ s,
       const int j = e % BN;
       const int gk = k0 + kk;
       const int gj = col0 + j;
-      Bs[kk][j] = (gk < K && gj < N) ? B[(long long)gk * N + gj] : 0.0f;
+      sm.Bs[kk][j] =
+          (gk < K && gj < N) ? to_float(B[(long long)gk * N + gj]) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -86,9 +93,9 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ s,
       float a[TM];
       float bv[TN];
 #pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = As[kk][tr + r * ROWS_T];
+      for (int r = 0; r < TM; ++r) a[r] = sm.As[kk][tr + r * ROWS_T];
 #pragma unroll
-      for (int c = 0; c < TN; ++c) bv[c] = Bs[kk][tc + c * COLS_T];
+      for (int c = 0; c < TN; ++c) bv[c] = sm.Bs[kk][tc + c * COLS_T];
 #pragma unroll
       for (int r = 0; r < TM; ++r)
 #pragma unroll
@@ -96,6 +103,29 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ s,
     }
     __syncthreads();
   }
+}
+
+template <class Epilogue>
+__global__ void __launch_bounds__(THREADS)
+gemm_kernel(const float* __restrict__ A, const float* __restrict__ s,
+            const float* __restrict__ B, float* __restrict__ C,
+            int M, int N, int K, long long stride_a, long long stride_s,
+            long long stride_b, long long stride_c, Epilogue epi) {
+  __shared__ Smem sm;
+
+  const long long b = blockIdx.z;
+  A += b * stride_a;
+  B += b * stride_b;
+  C += b * stride_c;
+  if (s != nullptr) s += b * stride_s;
+
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const int tr = threadIdx.x / COLS_T;
+  const int tc = threadIdx.x % COLS_T;
+
+  float acc[TM][TN];
+  tile_product(A, s, B, M, N, K, row0, col0, sm, acc);
 
 #pragma unroll
   for (int r = 0; r < TM; ++r) {

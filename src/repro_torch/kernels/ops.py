@@ -7,12 +7,15 @@ dtype, shape and contiguity, allocates the outputs with ``torch.empty``,
 launches the hand-written CUDA kernel on the current stream and raises if
 the launch fails; there is no fallback.  Any other device raises.
 
-The TPU padding rules of the reference (128-lane padding, block clamping)
-do not carry over: the CUDA kernels mask their ragged edges themselves.
+The TPU padding rules of the reference (128-lane padding, block clamping,
+the zero dummy row and zero parity block of ``rff_linreg_grad_masked``) do
+not carry over: the CUDA kernels mask their ragged edges themselves.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched the CUDA
 kernel (a ``linreg_grad_masked`` call is one launch of that kernel, though
-it runs as two CUDA grids).  CPU calls are not counted.
+it runs as two CUDA grids; ``linreg_grad_batched`` is a launch of
+``linreg_grad_masked`` without a mask, ``rff_embed_batched`` one of
+``rff_embed``).  CPU calls are not counted.
 """
 from __future__ import annotations
 
@@ -21,7 +24,11 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"rff_embed": 0, "parity_encode_batched": 0,
-            "linreg_grad_masked": 0}
+            "linreg_grad_masked": 0, "rff_linreg_grad_masked": 0,
+            "linreg_grad": 0, "parity_encode": 0}
+
+_FUSED_SYMBOLS = {torch.float32: "rff_linreg_grad_masked_f32",
+                  torch.bfloat16: "rff_linreg_grad_masked_bf16"}
 
 
 def reset_launch_counts() -> None:
@@ -29,9 +36,10 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _on_cuda(name: str, *tensors) -> bool:
+def _on_cuda(name: str, *tensors, dtype=torch.float32) -> bool:
     """False for all-CPU inputs (plain path); True for CUDA inputs that the
-    kernel takes; raises for anything else."""
+    kernel takes; raises for anything else.  ``dtype=None`` leaves the
+    dtype check to the caller."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {devices}")
@@ -41,8 +49,8 @@ def _on_cuda(name: str, *tensors) -> bool:
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: kernel takes float32, got {t.dtype}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel takes contiguous tensors")
     return True
@@ -56,8 +64,8 @@ def _check_shape(name: str, t, shape) -> None:
         raise ValueError(f"{name}: empty dimension in {tuple(shape)}")
 
 
-def _launch(name: str, lib: str, device, *args) -> None:
-    fn = build.kernel(lib)
+def _launch(name: str, symbol: str, device, *args) -> None:
+    fn = build.kernel(symbol)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -65,6 +73,10 @@ def _launch(name: str, lib: str, device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")
     LAUNCHES[name] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def rff_embed(x, omega, delta, q_true: int | None = None):
@@ -79,9 +91,31 @@ def rff_embed(x, omega, delta, q_true: int | None = None):
     if q_true <= 0:
         raise ValueError(f"rff_embed: q_true must be positive, got {q_true}")
     out = torch.empty((m, q), dtype=torch.float32, device=x.device)
-    _launch("rff_embed", "rff_embed", x.device, x.data_ptr(),
+    _launch("rff_embed", "rff_embed_f32", x.device, x.data_ptr(),
             omega.data_ptr(), delta.data_ptr(), out.data_ptr(), m, d, q,
             q_true)
+    return out
+
+
+def rff_embed_batched(x_stack, omega, delta):
+    """RFF embedding over a client axis: (n, l, d), (d, q), (q,) ->
+    (n, l, q), one ``rff_embed`` launch over the flattened client axis."""
+    n, l, d = x_stack.shape
+    flat = rff_embed(x_stack.reshape(n * l, d), omega, delta)
+    return flat.reshape(n, l, omega.shape[1])
+
+
+def parity_encode(g, w, x):
+    """G diag(w) X of one client: (u, l), (l,), (l, q) -> (u, q)."""
+    if not _on_cuda("parity_encode", g, w, x):
+        return ref.parity_encode(g, w, x)
+    (u, l), q = g.shape, x.shape[1]
+    _check_shape("parity_encode", g, (u, l))
+    _check_shape("parity_encode", w, (l,))
+    _check_shape("parity_encode", x, (l, q))
+    out = torch.empty((u, q), dtype=torch.float32, device=g.device)
+    _launch("parity_encode", "parity_encode_f32", g.device, g.data_ptr(),
+            w.data_ptr(), x.data_ptr(), out.data_ptr(), u, l, q)
     return out
 
 
@@ -94,9 +128,47 @@ def parity_encode_batched(g, w, x):
     _check_shape("parity_encode_batched", w, (n, l))
     _check_shape("parity_encode_batched", x, (n, l, q))
     out = torch.empty((n, u, q), dtype=torch.float32, device=g.device)
-    _launch("parity_encode_batched", "parity_encode", g.device, g.data_ptr(),
-            w.data_ptr(), x.data_ptr(), out.data_ptr(), n, u, l, q)
+    _launch("parity_encode_batched", "parity_encode_batched_f32", g.device,
+            g.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(), n, u,
+            l, q)
     return out
+
+
+def linreg_grad(x, theta, y):
+    """X^T (X theta - Y): (m, q), (q, c), (m, c) -> (q, c)."""
+    if not _on_cuda("linreg_grad", x, theta, y):
+        return ref.linreg_grad(x, theta, y)
+    (m, q), c = x.shape, theta.shape[1]
+    _check_shape("linreg_grad", x, (m, q))
+    _check_shape("linreg_grad", theta, (q, c))
+    _check_shape("linreg_grad", y, (m, c))
+    theta_t = theta.t().contiguous()
+    r = torch.empty((m, c), dtype=torch.float32, device=x.device)
+    g = torch.empty((q, c), dtype=torch.float32, device=x.device)
+    _launch("linreg_grad", "linreg_grad_f32", x.device, x.data_ptr(),
+            theta_t.data_ptr(), y.data_ptr(), r.data_ptr(), g.data_ptr(), m,
+            q, c)
+    return g
+
+
+def _masked_gradients(x, theta, y, mask):
+    """One ``linreg_grad_masked_f32`` launch; ``mask=None`` weighs every
+    row 1 without a tensor of ones."""
+    name = "linreg_grad_masked"
+    (n, L, q), c = x.shape, theta.shape[1]
+    _check_shape(name, x, (n, L, q))
+    _check_shape(name, theta, (q, c))
+    _check_shape(name, y, (n, L, c))
+    if mask is not None:
+        _check_shape(name, mask, (n, L))
+    # the residual warps read theta along q: hand it over as (c, q)
+    theta_t = theta.t().contiguous()
+    r = torch.empty((n, L, c), dtype=torch.float32, device=x.device)
+    g = torch.empty((n, q, c), dtype=torch.float32, device=x.device)
+    _launch(name, "linreg_grad_masked_f32", x.device, x.data_ptr(),
+            theta_t.data_ptr(), y.data_ptr(), _ptr(mask), r.data_ptr(),
+            g.data_ptr(), n, L, q, c)
+    return g
 
 
 def linreg_grad_masked(x, theta, y, mask):
@@ -104,16 +176,60 @@ def linreg_grad_masked(x, theta, y, mask):
     (n, L, q), (q, c), (n, L, c), (n, L) -> (n, q, c)."""
     if not _on_cuda("linreg_grad_masked", x, theta, y, mask):
         return ref.linreg_grad_masked(x, theta, y, mask)
-    (n, L, q), c = x.shape, theta.shape[1]
-    _check_shape("linreg_grad_masked", x, (n, L, q))
-    _check_shape("linreg_grad_masked", theta, (q, c))
-    _check_shape("linreg_grad_masked", y, (n, L, c))
-    _check_shape("linreg_grad_masked", mask, (n, L))
-    # the residual warps read theta along q: hand it over as (c, q)
-    theta_t = theta.t().contiguous()
-    r = torch.empty((n, L, c), dtype=torch.float32, device=x.device)
-    g = torch.empty((n, q, c), dtype=torch.float32, device=x.device)
-    _launch("linreg_grad_masked", "linreg_grad", x.device, x.data_ptr(),
-            theta_t.data_ptr(), y.data_ptr(), mask.data_ptr(), r.data_ptr(),
-            g.data_ptr(), n, L, q, c)
+    return _masked_gradients(x, theta, y, mask)
+
+
+def linreg_grad_batched(x, theta, y):
+    """X_b^T (X_b theta - Y_b): (n, L, q), (q, c), (n, L, c) -> (n, q, c);
+    on the card one ``linreg_grad_masked`` launch with no mask."""
+    if not _on_cuda("linreg_grad_batched", x, theta, y):
+        return ref.linreg_grad_batched(x, theta, y)
+    return _masked_gradients(x, theta, y, None)
+
+
+def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
+                           parity_phi=None):
+    """Fused RFF embedding -> per-client masked gradients from RAW features.
+
+    x_raw: (n, l, d), omega: (d, q), delta: (q,), theta: (q, c),
+    y_stack: (rows, l, c), mask: (rows, l), parity_phi: (l, q) or None ->
+    (rows, q, c) float32 with rows = n (+ 1 with parity_phi) and
+      g_b = phi_b^T diag(mask_b) (phi_b theta - Y_b),
+      phi_b = sqrt(2/q) cos(X_b omega + delta) for b < n, parity_phi for
+      the parity row b = n.
+    x, omega, delta, theta, y and parity_phi are all float32 or all
+    bfloat16; the mask is float32 (the parity row's 1/u scale), and so is
+    the result.  On the card the (rows, l, q) embedded tensor is never
+    allocated: one launch embeds tile by tile in shared memory.
+    """
+    name = "rff_linreg_grad_masked"
+    extra = () if parity_phi is None else (parity_phi,)
+    inputs = (x_raw, omega, delta, theta, y_stack, *extra)
+    n, l, d = x_raw.shape
+    if not _on_cuda(name, *inputs, mask, dtype=None):
+        return ref.rff_linreg_grad_masked(x_raw, omega, delta, theta,
+                                          y_stack, mask, parity_phi,
+                                          n_real=n)
+    symbol = _FUSED_SYMBOLS.get(x_raw.dtype)
+    if symbol is None or any(t.dtype != x_raw.dtype for t in inputs):
+        raise TypeError(f"{name}: kernel takes x, omega, delta, theta, y "
+                        "and parity_phi all float32 or all bfloat16, got "
+                        f"{[t.dtype for t in inputs]}")
+    if mask.dtype != torch.float32:
+        raise TypeError(f"{name}: the mask is float32, got {mask.dtype}")
+    (q, c), rows = (omega.shape[1], theta.shape[1]), n + len(extra)
+    _check_shape(name, x_raw, (n, l, d))
+    _check_shape(name, omega, (d, q))
+    _check_shape(name, delta, (q,))
+    _check_shape(name, theta, (q, c))
+    _check_shape(name, y_stack, (rows, l, c))
+    _check_shape(name, mask, (rows, l))
+    if parity_phi is not None:
+        _check_shape(name, parity_phi, (l, q))
+    r = torch.empty((rows, l, c), dtype=torch.float32, device=x_raw.device)
+    g = torch.empty((rows, q, c), dtype=torch.float32, device=x_raw.device)
+    _launch(name, symbol, x_raw.device, x_raw.data_ptr(), omega.data_ptr(),
+            delta.data_ptr(), theta.data_ptr(), y_stack.data_ptr(),
+            mask.data_ptr(), _ptr(parity_phi), r.data_ptr(), g.data_ptr(),
+            rows, n, l, d, q, c, q)
     return g

@@ -22,6 +22,24 @@ def rff_embed(x, omega, delta, q_true: int | None = None):
     return math.sqrt(2.0 / q) * torch.cos(x @ omega + delta[None, :])
 
 
+def linreg_grad(x, theta, y):
+    """Unnormalized squared-loss gradient (paper eq. 7/10).
+
+    x: (m, q), theta: (q, c), y: (m, c) -> (q, c)
+      g = x^T (x @ theta - y)
+    """
+    return x.T @ (x @ theta - y)
+
+
+def linreg_grad_batched(x, theta, y):
+    """Per-client gradients without a mask.
+
+    x: (n, l, q), theta: (q, c), y: (n, l, c) -> (n, q, c)
+      g_b = x_b^T (x_b @ theta - y_b)
+    """
+    return x.transpose(1, 2) @ (x @ theta - y)
+
+
 def linreg_grad_masked(x, theta, y, mask):
     """Per-client row-masked gradients (batched-engine form of eq. 7/10).
 
@@ -34,6 +52,15 @@ def linreg_grad_masked(x, theta, y, mask):
     return x.transpose(1, 2) @ r
 
 
+def parity_encode(g, w, x):
+    """Local parity encoding of one client (paper eq. 19).
+
+    g: (u, l) generator, w: (l,) diagonal weights, x: (l, q) -> (u, q)
+      parity = G diag(w) X
+    """
+    return (g * w[None, :]) @ x
+
+
 def parity_encode_batched(g, w, x):
     """All-clients local parity encoding (paper eq. 19).
 
@@ -41,3 +68,30 @@ def parity_encode_batched(g, w, x):
     -> (n, u, q) with  parity_b = G_b diag(w_b) X_b
     """
     return (g * w[:, None, :]) @ x
+
+
+def rff_linreg_grad_masked(x, omega, delta, theta, y, mask, pphi=None, *,
+                           n_real: int, q_true: int | None = None):
+    """Fused RFF embedding -> per-row-masked gradients (eq. 18 + 7/10).
+
+    x: (>= n_real, L, d) raw features (rows past n_real are not read),
+    omega: (d, q), delta: (q,), theta: (q, c), y: (rows, L, c), mask:
+    (rows, L), pphi: (L, q) or None -> (rows, q, c) float32 with
+      phi_b = sqrt(2/q_true) cos(x_b @ omega + delta)   for b <  n_real,
+      phi_b = pphi                                      for b >= n_real,
+      g_b   = phi_b^T diag(mask_b) (phi_b @ theta - y_b).
+    Every input is upcast to float32 first (bf16 inputs too), as the
+    reference's fallback does.
+    """
+    f32 = torch.float32
+    _, L, d = x.shape
+    q = omega.shape[1]
+    phi = rff_embed(x[:n_real].to(f32).reshape(n_real * L, d),
+                    omega.to(f32), delta.to(f32), q_true).reshape(n_real, L, q)
+    extra = y.shape[0] - n_real
+    if extra:
+        if pphi is None:
+            raise ValueError(f"{y.shape[0]} rows of labels for {n_real} raw "
+                             "clients need the parity block pphi")
+        phi = torch.cat([phi, pphi.to(f32).expand(extra, L, q)])
+    return linreg_grad_masked(phi, theta.to(f32), y.to(f32), mask.to(f32))

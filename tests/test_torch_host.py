@@ -168,28 +168,40 @@ def test_spec_round_trip_matches_reference(kw):
         **dataclasses.asdict(ref_spec.resolved_fl()))
 
 
+# (id, spec fields, the feature the refusal names, a ported feature it
+# must no longer name): the ported ones ride along with a missing feature
 _UNSUPPORTED = [
-    (dict(channel_profile="static"), "channel dynamics"),
-    (dict(fault_profile="none"), "fault injection"),
-    (dict(hier_shards=2), "hierarchical"),
-    (dict(mesh=2), "client-mesh"),
-    (dict(secure_aggregation=True), "secure aggregation"),
-    (dict(scheme="adaptive_coded", adapt_every=2), "adaptive"),
-    (dict(fused_embed=True, rff=t_config.RFFConfig(q=8)), "fused_embed"),
-    (dict(fused_coded=False), "fused_coded=False"),
-    (dict(engine="legacy"), "legacy"),
-    (dict(checkpoint_every=4), "checkpoint"),
+    ("channel dynamics", dict(channel_profile="static"), "channel dynamics",
+     None),
+    ("fault injection", dict(fault_profile="none"), "fault injection", None),
+    ("hierarchical", dict(hier_shards=2), "hierarchical", None),
+    ("client-mesh", dict(mesh=2), "client-mesh", None),
+    ("secure aggregation", dict(secure_aggregation=True),
+     "secure aggregation", None),
+    ("adaptive", dict(scheme="adaptive_coded", adapt_every=2), "adaptive",
+     None),
+    ("fused_embed", dict(fused_embed=True, rff=t_config.RFFConfig(q=8),
+                         checkpoint_every=4), "checkpoint", "fused_embed"),
+    ("fused_coded=False", dict(fused_coded=False, mesh=2), "client-mesh",
+     "fused_coded"),
+    ("legacy", dict(engine="legacy", secure_aggregation=True),
+     "secure aggregation", "legacy"),
+    ("checkpoint", dict(checkpoint_every=4), "checkpoint", None),
 ]
 
 
-@pytest.mark.parametrize("kw,feature", _UNSUPPORTED,
-                         ids=[f for _, f in _UNSUPPORTED])
-def test_unsupported_feature_raises_at_build(kw, feature):
+@pytest.mark.parametrize("kw,feature,ported",
+                         [case[1:] for case in _UNSUPPORTED],
+                         ids=[case[0] for case in _UNSUPPORTED])
+def test_unsupported_feature_raises_at_build(kw, feature, ported):
     spec = t_config.ExperimentSpec(fl=t_config.FLConfig(n_clients=4), **kw)
     xs = np.zeros((4, 6, 8), np.float32)
     ys = np.zeros((4, 6, 2), np.float32)
-    with pytest.raises(NotImplementedError, match=feature):
+    with pytest.raises(NotImplementedError, match=feature) as info:
         t_api.build_experiment(spec, xs, ys, device="cpu")
+    if ported is not None:
+        assert ported not in str(info.value)
+        assert ported not in " ".join(t_config.unsupported_features(spec))
 
 
 def test_vectorized_allocation_is_refused():

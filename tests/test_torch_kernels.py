@@ -6,8 +6,11 @@ On the CPU each plain PyTorch version (``repro_torch.kernels.ref``, which
 reference's Pallas kernel run as ``tests/test_kernels.py`` runs it: through
 ``repro.kernels.ops`` with ``use_pallas=True, interpret=True``.  Inputs are
 made with NumPy from a seed; shapes are odd so that no dimension is a
-multiple of a tile.  Tolerance: rtol = atol = 1e-5, float32 sums of at most
-~130 terms taken in another order.
+multiple of a tile, or sit one below, at and one above the reference's
+128-wide blocks.  Tolerance: rtol = atol = 1e-5, float32 sums of at most
+~130 terms taken in another order.  The fused kernel's bfloat16 variant is
+held to the same tolerance: both sides take the same bfloat16 values and
+compute in float32 (the mask stays float32).
 
 The ``cuda``-marked tests compare each CUDA kernel with its plain version
 on the card, at shapes one below, at and one above each tile multiple of
@@ -16,6 +19,8 @@ the kernel.  They skip where there is no card.
 import numpy as np
 import pytest
 import torch
+
+import jax.numpy as jnp
 
 from repro.kernels import ops as ref_ops
 
@@ -54,6 +59,36 @@ def _parity_inputs(n, u, l, q, seed=0):
     return g, w, x
 
 
+def _fused_inputs(n, L, d, q, c, parity, seed=0):
+    """Raw features, (Omega, delta), theta, labels and mask of n clients
+    (plus the parity row's labels, 1/u-scaled mask and block)."""
+    rows = n + int(parity)
+    x = np.random.default_rng(seed).uniform(0, 1, (n, L, d)).astype(
+        np.float32)
+    omega = _np((d, q), seed + 1, 0.3)
+    delta = np.random.default_rng(seed + 2).uniform(
+        0, 2 * np.pi, q).astype(np.float32)
+    theta = _np((q, c), seed + 3, 0.3)
+    y = _np((rows, L, c), seed + 4)
+    mask = np.random.default_rng(seed + 5).uniform(0, 1, (rows, L))
+    mask = np.where(mask < 0.3, 0.0, 1.0).astype(np.float32)
+    pphi = None
+    if parity:
+        mask[n] = np.float32(1.0 / (3 * L))
+        pphi = _np((L, q), seed + 6, 0.05)
+    return x, omega, delta, theta, y, mask, pphi
+
+
+def _as_bf16(arrays):
+    """The float32 arrays rounded to bfloat16: (port tensors, JAX arrays)
+    holding the same values."""
+    t = [None if a is None else torch.from_numpy(a).to(torch.bfloat16)
+         for a in arrays]
+    j = [None if a is None else jnp.asarray(b.float().numpy()).astype(
+        jnp.bfloat16) for a, b in zip(arrays, t)]
+    return t, j
+
+
 def _t(*arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
@@ -88,14 +123,124 @@ def test_parity_encode_batched_plain_matches_pallas(n, u, l, q):
                                atol=ATOL)
 
 
+# the fused kernel: n raw clients, with and without the parity row, f32
+# and bf16; shapes around the reference's 128-wide blocks in L, d, q and c
+_FUSED_SHAPES = [(3, 37, 19, 45, 3), (2, 64, 127, 129, 10),
+                 (2, 129, 128, 128, 17)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("parity", [False, True], ids=["clients", "parity"])
+@pytest.mark.parametrize("n,L,d,q,c", _FUSED_SHAPES)
+def test_rff_linreg_grad_masked_plain_matches_pallas(n, L, d, q, c, parity,
+                                                     dtype):
+    x, omega, delta, theta, y, mask, pphi = _fused_inputs(n, L, d, q, c,
+                                                          parity)
+    if dtype == "float32":
+        tx, tom, tde, tth, ty, tpp = (
+            None if a is None else torch.from_numpy(a)
+            for a in (x, omega, delta, theta, y, pphi))
+        jx, jom, jde, jth, jy, jpp = x, omega, delta, theta, y, pphi
+    else:
+        (tx, tom, tde, tth, ty, tpp), (jx, jom, jde, jth, jy, jpp) = \
+            _as_bf16((x, omega, delta, theta, y, pphi))
+    want = ref_ops.rff_linreg_grad_masked(
+        jx, jom, jde, jth, jy, mask, parity_phi=jpp, use_pallas=True,
+        interpret=True)
+    got = ops.rff_linreg_grad_masked(tx, tom, tde, tth, ty,
+                                     torch.from_numpy(mask), parity_phi=tpp)
+    assert got.dtype == torch.float32 and got.shape == (n + parity, q, c)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_rff_linreg_grad_masked_nan_in_masked_row_propagates():
+    """Zero-mask rows are not skipped: a NaN feature in a masked row
+    poisons that client's gradient, in the reference and in the port."""
+    x, omega, delta, theta, y, mask, _ = _fused_inputs(2, 9, 5, 7, 2, False)
+    mask[1, 3] = 0.0
+    x[1, 3, 2] = np.nan
+    want = np.asarray(ref_ops.rff_linreg_grad_masked(
+        x, omega, delta, theta, y, mask, use_pallas=True, interpret=True))
+    got = ops.rff_linreg_grad_masked(*_t(x, omega, delta, theta, y, mask))
+    assert np.isnan(want[1]).all() and torch.isnan(got[1]).all()
+    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("m,q,c", [(37, 45, 3), (129, 127, 10),
+                                   (128, 129, 17)])
+def test_linreg_grad_plain_matches_pallas(m, q, c):
+    x, theta, y, _ = _grad_inputs(1, m, q, c)
+    want = ref_ops.linreg_grad(x[0], theta, y[0], use_pallas=True,
+                               interpret=True)
+    got = ops.linreg_grad(*_t(x[0], theta, y[0]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("n,L,q,c", [(3, 37, 45, 3), (2, 129, 128, 10)])
+def test_linreg_grad_batched_plain_matches_pallas(n, L, q, c):
+    x, theta, y, _ = _grad_inputs(n, L, q, c)
+    want = ref_ops.linreg_grad_batched(x, theta, y, use_pallas=True,
+                                       interpret=True)
+    got = ops.linreg_grad_batched(*_t(x, theta, y))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("u,l,q", [(13, 20, 24), (129, 127, 128),
+                                   (128, 129, 127)])
+def test_parity_encode_plain_matches_pallas(u, l, q):
+    g, w, x = _parity_inputs(1, u, l, q)
+    want = ref_ops.parity_encode(g[0], w[0], x[0], use_pallas=True,
+                                 interpret=True)
+    got = ops.parity_encode(*_t(g[0], w[0], x[0]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("n,l,d,q", [(3, 11, 19, 45), (2, 65, 129, 127)])
+def test_rff_embed_batched_plain_matches_pallas(n, l, d, q):
+    x, omega, delta = _rff_inputs(n * l, d, q)
+    x = x.reshape(n, l, d)
+    want = ref_ops.rff_embed_batched(x, omega, delta, use_pallas=True,
+                                     interpret=True)
+    got = ops.rff_embed_batched(*_t(x, omega, delta))
+    assert got.shape == (n, l, q)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
 def test_cpu_calls_take_the_plain_path_and_count_nothing():
     ops.reset_launch_counts()
     x, theta, y, mask = _t(*_grad_inputs(2, 5, 6, 2))
     torch.testing.assert_close(ops.linreg_grad_masked(x, theta, y, mask),
                                ref.linreg_grad_masked(x, theta, y, mask),
                                rtol=0, atol=0)
-    assert ops.LAUNCHES == {"rff_embed": 0, "parity_encode_batched": 0,
-                            "linreg_grad_masked": 0}
+    torch.testing.assert_close(ops.linreg_grad_batched(x, theta, y),
+                               ref.linreg_grad_batched(x, theta, y),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ops.linreg_grad(x[0], theta, y[0]),
+                               ref.linreg_grad(x[0], theta, y[0]),
+                               rtol=0, atol=0)
+    g, w, xp = _t(*_parity_inputs(2, 4, 3, 5))
+    torch.testing.assert_close(ops.parity_encode(g[0], w[0], xp[0]),
+                               ref.parity_encode(g[0], w[0], xp[0]),
+                               rtol=0, atol=0)
+    fused = _t(*_fused_inputs(2, 5, 3, 6, 2, False)[:6])
+    torch.testing.assert_close(
+        ops.rff_linreg_grad_masked(*fused),
+        ref.rff_linreg_grad_masked(*fused, n_real=2), rtol=0, atol=0)
+    assert ops.LAUNCHES == dict.fromkeys(
+        ("rff_embed", "parity_encode_batched", "linreg_grad_masked",
+         "rff_linreg_grad_masked", "linreg_grad", "parity_encode"), 0)
+
+
+def test_fused_wrapper_checks_rows_against_parity():
+    x, omega, delta, theta, y, mask, pphi = _fused_inputs(2, 5, 3, 6, 2,
+                                                          True)
+    with pytest.raises(ValueError, match="pphi"):
+        ops.rff_linreg_grad_masked(*_t(x, omega, delta, theta, y, mask))
 
 
 def test_wrapper_refuses_other_devices():
@@ -160,12 +305,73 @@ def test_parity_encode_batched_kernel_matches_plain(cuda, n, u, l, q):
     assert _max_rel_err(got, ref.parity_encode_batched(*args)) < 1e-5
 
 
+# the fused kernel tiles L and q by 64, d by 16 and c by 16
+_FUSED_EDGES = [(1, 63, 15, 63, 15), (1, 64, 16, 64, 16),
+                (2, 65, 17, 65, 17), (3, 130, 784, 200, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("parity", [False, True], ids=["clients", "parity"])
+@pytest.mark.parametrize("n,L,d,q,c", _FUSED_EDGES)
+def test_rff_linreg_grad_masked_kernel_matches_plain(cuda, n, L, d, q, c,
+                                                     parity, dtype):
+    arrays = _fused_inputs(n, L, d, q, c, parity)
+    *args, pphi = [None if a is None else torch.from_numpy(a).to(cuda)
+                   for a in arrays]
+    if dtype == "bfloat16":
+        args = [a if i == 5 else a.to(torch.bfloat16)
+                for i, a in enumerate(args)]
+        pphi = None if pphi is None else pphi.to(torch.bfloat16)
+    got = ops.rff_linreg_grad_masked(*args, parity_phi=pphi)
+    again = ops.rff_linreg_grad_masked(*args, parity_phi=pphi)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)      # no atomics: reruns give the bits
+    want = ref.rff_linreg_grad_masked(*args, pphi, n_real=n)
+    assert _max_rel_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,q,c", [(63, 127, 15), (64, 128, 16),
+                                   (65, 129, 17), (2400, 200, 10)])
+def test_linreg_grad_kernel_matches_plain(cuda, m, q, c):
+    x, theta, y, _ = _grad_inputs(1, m, q, c)
+    args = _t(x[0], theta, y[0], device=cuda)
+    got = ops.linreg_grad(*args)
+    torch.cuda.synchronize()
+    assert _max_rel_err(got, ref.linreg_grad(*args)) < 1e-5
+    xs, th, ys = _t(x, theta, y, device=cuda)
+    got = ops.linreg_grad_batched(xs, th, ys)
+    torch.cuda.synchronize()
+    assert _max_rel_err(got, ref.linreg_grad_batched(xs, th, ys)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u,l,q", [(63, 15, 63), (64, 16, 64), (65, 17, 65),
+                                   (200, 40, 10)])
+def test_parity_encode_kernel_matches_plain(cuda, u, l, q):
+    g, w, x = _parity_inputs(1, u, l, q)
+    args = _t(g[0], w[0], x[0], device=cuda)
+    got = ops.parity_encode(*args)
+    torch.cuda.synchronize()
+    assert _max_rel_err(got, ref.parity_encode(*args)) < 1e-5
+
+
 @pytest.mark.cuda
 def test_kernel_launches_are_counted(cuda):
     ops.reset_launch_counts()
     ops.rff_embed(*_t(*_rff_inputs(8, 4, 8), device=cuda))
     ops.parity_encode_batched(*_t(*_parity_inputs(2, 4, 3, 5), device=cuda))
     ops.linreg_grad_masked(*_t(*_grad_inputs(2, 5, 6, 2), device=cuda))
+    x, theta, y, _ = _t(*_grad_inputs(2, 5, 6, 2), device=cuda)
+    ops.linreg_grad_batched(x, theta, y)
+    ops.linreg_grad(x[0], theta, y[0])
+    g, w, xp = _t(*_parity_inputs(1, 4, 3, 5), device=cuda)
+    ops.parity_encode(g[0], w[0], xp[0])
+    ops.rff_linreg_grad_masked(*_t(*_fused_inputs(2, 5, 3, 6, 2, False)[:6],
+                                   device=cuda))
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"rff_embed": 1, "parity_encode_batched": 1,
-                            "linreg_grad_masked": 1}
+                            "linreg_grad_masked": 2,
+                            "rff_linreg_grad_masked": 1, "linreg_grad": 1,
+                            "parity_encode": 1}
