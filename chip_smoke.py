@@ -29,10 +29,26 @@ Phases, each printed as one JSON object per line:
   8. encode_local: the per-client parity_encode loop over the coded
              deployment's 30 clients, then aggregate_parity, against the
              batched encode of the main path;
-  9. kernel: each kernel against its plain PyTorch version on the card, at
-             the main path's shapes (its own inputs) and at edge shapes one
-             below, at and one above a tile multiple; times with CUDA events;
- 10. the kernels table, then the final line
+  9. serve:  the model zoo's serving path, qwen3-4b at full width (36
+             layers, d_model 2560, bf16) from seeded random weights: 8
+             requests of 4096-token prompts (make_batch), 64 greedy tokens
+             each (max_seq 4160, window 0) through
+             repro_torch.launch.serve.serve; 36 x 63 gqa_decode launches,
+             none in prefill; prefill ms, warm decode ms per step against
+             its byte bound, tokens/s; then torch.profiler over 4 warm
+             decode steps after a second prefill: device busy and idle
+             share of a step, the top kernels, and gqa_decode's share;
+ 10. serve_check: full width at 4 layers, float32: the last decode step's
+             logits against the last-position logits of a prefill over
+             prompt + generated tokens, at window 0 and at window 1024 over
+             a 4096-token prompt (a rolling cache);
+ 11. serve_cpu: the qwen3-4b smoke variant served on the card and on the
+             CPU (plain versions): identical tokens, logits within tolerance;
+ 12. kernel: each kernel against its plain PyTorch version on the card, at
+             the main path's shapes (its own inputs; gqa_decode at the
+             serving shape) and at edge shapes one below, at and one above a
+             tile multiple; times with CUDA events;
+ 13. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -91,13 +107,31 @@ TPU_KERNELS = [
      "src/repro_torch/kernels/csrc/linreg_grad.cu"),
     ("parity_encode", "src/repro/kernels/parity_encode.py:39",
      "src/repro_torch/kernels/csrc/parity_encode.cu"),
+    ("gqa_decode", "src/repro/kernels/gqa_decode.py:67",
+     "src/repro_torch/kernels/csrc/gqa_decode.cu"),
 ]
 # the kernels of the main phase (the first slice's path)
 MAIN_KERNELS = ("rff_embed", "parity_encode_batched", "linreg_grad_masked")
-NOT_YET_PORTED = [
-    ("gqa_decode", "src/repro/kernels/gqa_decode.py:67",
-     "model zoo only"),
-]
+NOT_YET_PORTED = []
+
+# the serving phase: qwen3-4b (src/repro/configs/qwen3_4b.py), full width
+SERVE_ARCH = "qwen3-4b"
+SERVE = dict(batch=8, prompt_len=4096, gen_len=64, window=0, seed=0)
+CHECK_LAYERS = 4               # serve_check's depth cut
+PROFILE_STEPS = 4              # decode steps under torch.profiler
+CHECK_GEN = 8
+CHECK_WINDOW = 1024
+SMOKE_SERVE = dict(batch=4, prompt_len=64, gen_len=16, seed=0)
+# logits of the kernel decode path against a prefill over the same tokens
+# (float32, 4 layers of width 2560 and a 151936-wide head): the repository's
+# own decode-vs-prefill tolerance, tests/test_models_smoke.py:87
+CHECK_ATOL, CHECK_RTOL = 2e-3, 1e-2
+# the smoke variant on the card against the CPU: float32 sums of <= 512
+# terms in another order through 2 layers
+SMOKE_LOGIT_ATOL = 1e-4
+# gqa_decode in bfloat16: kernel and plain version round the same float32
+# result to bf16, at most one ulp (2^-8 relative) apart
+BF16_REL_TOL = 2 ** -7
 
 
 def emit(obj) -> None:
@@ -533,6 +567,343 @@ def encode_local_path(torch, dev, state) -> None:
           f" times for {exp.n} clients")
 
 
+def _release(torch) -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def serve_path(torch, dev, state) -> None:
+    """qwen3-4b at full width, bf16: 8 x 4096-token prompts, 64 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=SERVE["seed"], device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    B, S, gen = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    T = S + gen
+    # a decode step reads every weight but the embedding table (B rows of
+    # it), and the whole cache: K and V of every layer
+    elem = params.embed.element_size()
+    step_weight_bytes = (param_bytes - params.embed.numel() * elem
+                         + B * cfg.d_model * elem)
+    cache_bytes = (cfg.n_layers * 2 * B * T * cfg.n_kv_heads * cfg.head_dim
+                   * elem)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve(cfg, params=params, device=dev, verbose=False, **SERVE)
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * (gen - 1)
+    tokens_ok = (tuple(res.tokens.shape) == (B, gen)
+                 and int(res.tokens.min()) >= 0
+                 and int(res.tokens.max()) < cfg.vocab)
+    logits_ok = bool(torch.isfinite(res.logits).all())
+    bound_ms = (step_weight_bytes + cache_bytes) / PEAK_BYTES * 1e3
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "params": n_params,
+          "param_bytes": param_bytes, **SERVE, "max_seq": T,
+          "init_s": init_s, "prefill_ms": res.prefill_ms,
+          "first_decode_ms": res.first_decode_ms,
+          "decode_ms_per_step": res.decode_ms_per_step,
+          "tokens_per_s": res.tokens_per_s,
+          "step_weight_bytes": step_weight_bytes,
+          "cache_bytes": cache_bytes, "step_bound_ms": bound_ms,
+          "step_over_bound": res.decode_ms_per_step / bound_ms,
+          "peak_bytes": peak, "launches": launches,
+          "expected_gqa_decode": want, "tokens_ok": tokens_ok,
+          "logits_finite": logits_ok,
+          "first_tokens": res.tokens[0, :8].tolist()})
+    check(launches["gqa_decode"] == want, f"serve: gqa_decode launched "
+          f"{launches['gqa_decode']} times, expected {want}")
+    check(tokens_ok and logits_ok, "serve: tokens out of range or logits "
+          "not finite")
+    # where a decode step's time goes: torch.profiler over PROFILE_STEPS
+    # warm decode steps of a second prefill of the same prompts, driven
+    # through the model's own entry points
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.model_zoo import build
+    model = build(cfg)
+    prompt = make_batch(cfg, B, S, SERVE["seed"])["tokens"].to(dev)
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache_len=T)
+    tok = logits.argmax(dim=-1)[:, None].to(torch.int32)
+    logits, cache = model.decode_step(params, cache, tok, S)    # warm-up
+    tok = logits.argmax(dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILE_STEPS):
+            logits, cache = model.decode_step(params, cache, tok, S + 1 + i)
+            tok = logits.argmax(dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(ops.LAUNCHES["gqa_decode"] == cfg.n_layers * PROFILE_STEPS,
+          "serve (profiled): gqa_decode launch count")
+    # device-side events (kernels, copies, fills), by name
+    from torch.autograd import DeviceType
+    by_name, host, aten_calls = {}, {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.key] = evt.device_time_total / 1e3 / PROFILE_STEPS
+        else:
+            host[evt.key] = evt.self_cpu_time_total / 1e3 / PROFILE_STEPS
+            aten_calls += evt.count if evt.key.startswith("aten::") else 0
+    check(by_name, "serve (profiled): the trace holds no device event")
+    busy = sum(by_name.values())
+    gqa = sum(t for k, t in by_name.items()
+              if "gqa_split_kernel" in k or "gqa_combine_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    per_step = wall_ms / PROFILE_STEPS
+    emit({"phase": "serve", "profiled_decode_steps": PROFILE_STEPS,
+          "profiled_ms_per_step": per_step,
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy / per_step,
+          "gqa_decode_device_ms_per_step": gqa,
+          "gqa_decode_share_of_busy": gqa / busy if busy else None,
+          "gqa_decode_share_of_step": gqa / res.decode_ms_per_step,
+          "top_device_ms_per_step": [[k[:90], t] for k, t in top],
+          "host_self_ms_per_step": sum(host.values()),
+          "aten_calls_per_step": aten_calls / PROFILE_STEPS,
+          "top_host_self_ms_per_step": [
+              [k[:60], t] for k, t in sorted(host.items(),
+                                             key=lambda kv: -kv[1])[:8]],
+          "source": "torch.profiler (CPU + CUDA) over warm decode steps; "
+          "shares of the unprofiled run's decode_ms_per_step and of the "
+          "profiled device busy time"})
+    state["serve"] = {"decode_ms_per_step": res.decode_ms_per_step,
+                      "gqa_profiled_ms_per_step": gqa}
+    del model, cache, logits, prompt
+    del params, res
+    _release(torch)
+
+
+def serve_check(torch, dev, state) -> None:
+    """Full width at CHECK_LAYERS layers, float32: the kernel decode path
+    against a prefill over prompt + generated tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=CHECK_LAYERS,
+                              dtype="float32")
+    params = transformer.init_params(cfg, seed=1, device=dev)
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    prompt = make_batch(cfg, B, S, SERVE["seed"])["tokens"]
+    for window in (0, CHECK_WINDOW):
+        ops.reset_launch_counts()
+        res = serve(cfg, batch=B, prompt_len=S, gen_len=CHECK_GEN,
+                    window=window, seed=SERVE["seed"], device=dev,
+                    params=params, verbose=False)
+        launches = dict(ops.LAUNCHES)
+        add_launches(state, launches)
+        want_launches = CHECK_LAYERS * (CHECK_GEN - 1)
+        check(launches["gqa_decode"] == want_launches,
+              f"serve_check: gqa_decode launched {launches['gqa_decode']} "
+              f"times, expected {want_launches}")
+        # the plain path: one prefill (no gqa_decode) over the same tokens
+        tokens = torch.cat([prompt, res.tokens[:, :-1]], dim=1).to(dev)
+        logits, _ = transformer.prefill(cfg, params, {"tokens": tokens},
+                                        window=window)
+        check(ops.LAUNCHES["gqa_decode"] == want_launches,
+              "serve_check: the plain prefill launched gqa_decode")
+        want = logits.float().cpu()
+        err = float((res.logits - want).abs().max())
+        excess = float(((res.logits - want).abs()
+                        - (CHECK_ATOL + CHECK_RTOL * want.abs())).max())
+        slots = S + CHECK_GEN if window == 0 else min(S, window)
+        emit({"phase": "serve_check", "layers": CHECK_LAYERS,
+              "dtype": "float32", "window": window, "cache_slots": slots,
+              "batch": B, "prompt_len": S, "gen_len": CHECK_GEN,
+              "launches": launches, "logits_max_abs_err": err,
+              "max_abs_logit": float(want.abs().max()),
+              "atol": CHECK_ATOL, "rtol": CHECK_RTOL,
+              "tol_reason": "float32 sums in other orders through 4 layers "
+              "of width 2560 and the 151936-wide head; the repository's own "
+              "decode-vs-prefill tolerance (tests/test_models_smoke.py:87)",
+              "argmax_identical": bool(torch.equal(res.logits.argmax(-1),
+                                                   want.argmax(-1)))})
+        check(math.isfinite(err) and excess <= 0.0,
+              f"serve_check window {window}: decode logits differ from the "
+              f"prefill's by {err}")
+    del params
+    _release(torch)
+
+
+def serve_cpu(torch, dev, state) -> None:
+    """The smoke variant served on the card and on the CPU."""
+    import copy
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer
+
+    cfg = smoke_variant(get_config(SERVE_ARCH))
+    params = transformer.init_params(cfg, seed=SMOKE_SERVE["seed"],
+                                     device="cpu")
+    for window in (0, 16):
+        ops.reset_launch_counts()
+        gpu = serve(cfg, window=window, device=dev,
+                    params=copy.deepcopy(params), verbose=False,
+                    **SMOKE_SERVE)
+        launches = dict(ops.LAUNCHES)
+        add_launches(state, launches)
+        cpu = serve(cfg, window=window, device="cpu", params=params,
+                    verbose=False, **SMOKE_SERVE)
+        check(ops.LAUNCHES == launches, "serve_cpu: the CPU run launched")
+        same = bool(torch.equal(gpu.tokens, cpu.tokens))
+        err = float((gpu.logits - cpu.logits).abs().max())
+        emit({"phase": "serve_cpu", "arch": cfg.name, "window": window,
+              **SMOKE_SERVE, "launches": launches,
+              "tokens_identical": same, "logits_max_abs_err": err,
+              "tol": SMOKE_LOGIT_ATOL, "tol_reason": "float32 sums of <= 512 "
+              "terms in another order through 2 layers"})
+        want = cfg.n_layers * (SMOKE_SERVE["gen_len"] - 1)
+        check(launches["gqa_decode"] == want, f"serve_cpu: gqa_decode "
+              f"launched {launches['gqa_decode']} times, expected {want}")
+        check(same, f"serve_cpu window {window}: card and CPU tokens differ")
+        check(err <= SMOKE_LOGIT_ATOL, f"serve_cpu window {window}: logits "
+              f"differ by {err}")
+
+
+def gqa_checks(torch, dev, state) -> dict:
+    """gqa_decode against its plain version at the serving shape (bf16 and
+    float32) and at edge shapes; kernel, plain, SDPA and bound times."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+
+    def rolling(T, last):
+        pos = torch.empty(T, dtype=torch.int32)
+        for p in range(last - T + 1, last + 1):
+            pos[p % T] = p
+        return pos.to(dev)
+
+    def case(B, H, K, hd, hdv, T, q_pos, window=0, k_pos=None,
+             dtype=torch.float32):
+        q = torch.randn((B, H, hd), generator=gen, device=dev)
+        k = torch.randn((B, T, K, hd), generator=gen, device=dev)
+        v = torch.randn((B, T, K, hdv), generator=gen, device=dev)
+        if k_pos is None:
+            k_pos = torch.arange(T, dtype=torch.int32, device=dev)
+        return (q.to(dtype), k.to(dtype), v.to(dtype), k_pos, q_pos, window)
+
+    cfg = get_config(SERVE_ARCH)
+    B, T = SERVE["batch"], SERVE["prompt_len"] + SERVE["gen_len"]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # the serving shape at the last decode step: every slot valid
+    main = case(B, H, K, hd, hd, T, T - 1, dtype=bf16)
+    main_f32 = tuple(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                     else a for a in main)
+    empty = torch.arange(300, dtype=torch.int32, device=dev)
+    empty[torch.rand(300, generator=gen, device=dev) < 0.2] = -1
+    edges = []
+    for dtype in (torch.float32, bf16):
+        edges += [
+            case(2, 32, 8, 128, 128, 127, 126, dtype=dtype),
+            case(2, 32, 8, 128, 128, 128, 127, dtype=dtype),
+            case(2, 32, 8, 128, 128, 129, 128, dtype=dtype),
+            case(2, 32, 8, 128, 128, 300, 299, window=100, dtype=dtype),
+            case(2, 32, 8, 128, 128, 300, 299, k_pos=empty, dtype=dtype),
+            case(2, 32, 8, 128, 128, 1024, 4159, window=1024,
+                 k_pos=rolling(1024, 4159), dtype=dtype),
+            case(2, 32, 8, 128, 128, 1000, 4159, window=1000,
+                 k_pos=rolling(1000, 4159), dtype=dtype),   # 4160 % 1000
+            case(2, 8, 8, 128, 128, 257, 256, dtype=dtype),   # G = 1
+            case(2, 32, 4, 128, 128, 257, 256, dtype=dtype),  # G = 8, yi-6b
+            case(2, 16, 16, 192, 128, 129, 128, dtype=dtype),  # hd_v != hd
+        ]
+
+    def kern(*a):
+        return ops.gqa_decode(*a)
+
+    def plain(*a):
+        return ref.gqa_decode(*a)
+
+    def lib(q, k, v, k_pos, q_pos, window):
+        valid = (k_pos >= 0) & (k_pos <= q_pos)
+        if window > 0:
+            valid &= k_pos > q_pos - window
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=valid[None, None, None, :], enable_gqa=True)[:, :, 0]
+
+    def tol_of(dtype):
+        return REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+
+    checks = []
+    for args in [main, main_f32] + edges:
+        got = kern(*args)
+        again = kern(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), "gqa_decode: two launches on the same "
+              "inputs gave other bits")
+        err, tol = max_err(torch, got.float(), plain(*args).float(),
+                           tol_of(args[0].dtype))
+        checks.append({"shape": [list(a.shape) for a in args[:4]],
+                       "q_pos": args[4], "window": args[5],
+                       "dtype": str(args[0].dtype).replace("torch.", ""),
+                       "max_abs_err": err, "tol": tol})
+    lib_err, _ = max_err(torch, lib(*main).float(), plain(*main).float(),
+                         BF16_REL_TOL)
+    reps = 50
+    kernel_ms = time_ms(torch, lambda: kern(*main), reps)
+    plain_ms = time_ms(torch, lambda: plain(*main), reps)
+    library_ms = time_ms(torch, lambda: lib(*main), reps)
+    f32_ms = time_ms(torch, lambda: kern(*main_f32), reps)
+    f32_lib_ms = time_ms(torch, lambda: lib(*main_f32), reps)
+    q, k, v, k_pos, q_pos, _ = main
+    # K rows of valid slots and every V row, q, k_pos and out, once each
+    n_valid = int(((k_pos >= 0) & (k_pos <= q_pos)).sum())
+    elem = q.element_size()
+    nbytes = (q.numel() * elem + B * n_valid * K * hd * elem
+              + v.numel() * elem + k_pos.numel() * 4 + q.numel() * elem)
+    flops = 4 * B * H * n_valid * hd
+    bound_ms, bound_by = bound(nbytes, flops)
+    name, replaces, source = TPU_KERNELS[-1]
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": state["launches"][name],
+           "max_abs_err": checks[0]["max_abs_err"], "ms": kernel_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms, "shape": checks[0]["shape"],
+           "status": "ported, checked"}
+    n_layers = cfg.n_layers
+    decode_ms = state["serve"]["decode_ms_per_step"]
+    emit({"phase": "kernel", **row, "kernel_ms": kernel_ms,
+          "f32_ms": f32_ms, "f32_library_ms": f32_lib_ms,
+          "serve_share_from_events": n_layers * kernel_ms / decode_ms,
+          "serve_share_from_profiler":
+              state["serve"]["gqa_profiled_ms_per_step"] / decode_ms,
+          "achieved_bytes_per_s": nbytes / (kernel_ms * 1e-3),
+          "bound_share": bound_ms / kernel_ms, "checks": checks,
+          "library": "torch.nn.functional.scaled_dot_product_attention("
+          "enable_gqa=True) with the same mask", "library_max_abs_err":
+          lib_err, "tol_reason": f"|kernel - plain| <= {REL_TOL} * max(1, "
+          "max|plain|) in float32 (sums in another order); "
+          f"{BF16_REL_TOL} in bfloat16 (both round the same float32 value "
+          "to bf16, one ulp apart at most)", "bytes": nbytes,
+          "flops": flops, "reps": reps, "rerun_identical": True})
+    return row
+
+
 def kernel_checks(torch, dev, state) -> list:
     """Each kernel against its plain version on the card; timings."""
     from repro_torch.kernels import ops, ref
@@ -693,7 +1064,8 @@ def kernel_checks(torch, dev, state) -> list:
     ]
     table = []
     for (name, kern, plain, lib, main, edges, nbytes, flops, reps, rel_tol,
-         extra), (_, replaces, source) in zip(specs, TPU_KERNELS):
+         extra), (_, replaces, source) in zip(specs,
+                                              TPU_KERNELS[:len(specs)]):
         checks = []
         for args in [main] + edges:
             got = kern(*args)
@@ -723,6 +1095,7 @@ def kernel_checks(torch, dev, state) -> list:
                  if rel_tol != REL_TOL else ""),
               "bytes": nbytes, "flops": flops, "reps": reps})
         table.append(row)
+    table.append(gqa_checks(torch, dev, state))
     return table
 
 
@@ -756,7 +1129,7 @@ def main() -> int:
     state = main_path(torch, dev)
     emit({"phase": "main", "seconds": time.perf_counter() - t0})
     for phase in (cpu_twin, fused_embed_path, unfused_path, legacy_path,
-                  encode_local_path):
+                  encode_local_path, serve_path, serve_check, serve_cpu):
         t0 = time.perf_counter()
         phase(torch, dev, state)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})

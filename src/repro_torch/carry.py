@@ -14,7 +14,10 @@ them into the port's tensors:
     that ``repro.core.schemes.CodedScheme.setup`` draws from its key chain
     (``PRNGKey(fl.seed + 99)``, split client after client), for
     ``build_experiment(..., parity_generators=...)``;
-  * `theta_from_reference`: a (q, c) model iterate.
+  * `theta_from_reference`: a (q, c) model iterate;
+  * `model_params_from_reference`: the model zoo's weights (the param
+    pytree of ``repro.models.model_zoo.build(cfg).init_params``), for
+    ``repro_torch.launch.serve.serve(..., params=...)``.
 
 This module imports neither ``jax`` nor ``repro``: the caller does the
 drawing.
@@ -53,3 +56,45 @@ def generators_from_reference(g_stack, device=None) -> torch.Tensor:
 def theta_from_reference(theta, device=None) -> torch.Tensor:
     """A (q, c) model iterate as a float32 tensor on `device`."""
     return _tensor(theta, 2, "theta", device)
+
+
+def _weight(arr, dtype, device) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":       # ml_dtypes: hand the bits over
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype)
+
+
+def model_params_from_reference(params_np, cfg, device=None):
+    """The reference's param pytree (NumPy arrays) as a port `Transformer`
+    on `device`, in the config's dtype.
+
+    The reference stacks the layers of its one dense stage on a leading
+    axis (``params["stage0"]["l0"][...]`` of shape (n_layers, ...)); this
+    unstacks them into the port's layers.  Layouts are kept: wq (D, H, hd),
+    wk/wv (D, K, hd), wo (H, hd, D), w1/w3 (D, F), w2 (F, D), embed (V, D),
+    lm_head (D, V)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import dtype_of
+
+    transformer.check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg)
+    stage = params_np["stage0"]["l0"]
+
+    def w(arr):
+        return _weight(arr, dtype, dev)
+
+    layers = []
+    for i in range(cfg.n_layers):
+        attn = {name: w(a[i]) for name, a in stage["attn"].items()}
+        ffn = {name: w(stage["ffn"][name][i]) for name in ("w1", "w3", "w2")}
+        layers.append(transformer.DenseLayer(w(stage["ln1"][i]),
+                                             w(stage["ln2"][i]), attn, ffn))
+    lm_head = None if cfg.tie_embeddings else w(params_np["lm_head"])
+    return transformer.Transformer(cfg, w(params_np["embed"]),
+                                   w(params_np["final_norm"]), lm_head,
+                                   layers)

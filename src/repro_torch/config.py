@@ -17,6 +17,10 @@ Combinations the reference refuses when a spec is made (``fused_embed``
 with the legacy engine or a mesh, the legacy engine with checkpoints,
 channel dynamics, faults or the hierarchical tier) raise ``ValueError``
 here too.
+
+The model zoo's configurations (``ModelConfig`` and its family blocks,
+``ShapeConfig``, ``SHAPES``) are copied field for field as well; the
+architectures themselves live in ``repro_torch.configs``.
 """
 from __future__ import annotations
 
@@ -24,6 +28,112 @@ import dataclasses
 import re
 from typing import Optional, Tuple
 
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    num_shared_experts: int = 0
+    top_k: int = 2
+    d_ff_expert: int = 0            # expert hidden size (may differ from dense d_ff)
+    capacity_factor: float = 1.25
+    every_n_layers: int = 1         # apply MoE FFN every n-th layer (1 = all)
+    aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 style selective SSM (used by jamba)."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                # 0 -> ceil(d_model/16)
+    attn_every_n: int = 8           # hybrid: 1 attention layer per n layers
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_size: int = 64
+    decay_lora: int = 64            # rank of data-dependent decay LoRA
+    shift_lora: int = 32            # rank of data-dependent token-shift LoRA
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    swa_window: int = 0             # 0 = full attention; >0 sliding window
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    # enc-dec (whisper): number of encoder layers; encoder input is a stub
+    # of precomputed frame embeddings (audio carve-out).
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0            # fixed encoder frames (whisper: 1500)
+    # vlm: number of prefix patch-embedding positions (stub ViT output)
+    n_prefix_patches: int = 0
+    # pad the embedding/vocab rows up to a multiple of 16; padded ids are
+    # masked out of the logits
+    pad_vocab: bool = False
+    dtype: str = "bfloat16"
+    # citation for the config (paper / model card)
+    source: str = ""
+
+    @property
+    def vocab_padded(self) -> int:
+        if not self.pad_vocab:
+            return self.vocab
+        return -(-self.vocab // 16) * 16
+
+    @property
+    def attention_free(self) -> bool:
+        return self.arch_type == "ssm"
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_encoder_layers > 0
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if the arch natively supports O(<seq^2) long-context decode."""
+        return self.arch_type in ("ssm", "hybrid") or self.swa_window > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:

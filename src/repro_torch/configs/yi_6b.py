@@ -1,0 +1,9 @@
+"""yi-6b — llama-arch dense GQA [arXiv:2403.04652]."""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-6b", arch_type="dense",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=4, head_dim=128,
+    d_ff=11008, vocab=64000, rope_theta=5000000.0,
+    source="arXiv:2403.04652",
+)

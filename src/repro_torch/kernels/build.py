@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _FUSED_ARGS = (_P,) * 9 + (_I,) * 7 + (_P,)
+_GQA_ARGS = (_P,) * 8 + (_I,) * 8 + (_P,)
 # C signature of each entry point: symbol -> (library, argtypes)
 SIGNATURES = {
     "rff_embed_f32": ("rff_embed", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
@@ -37,6 +38,10 @@ SIGNATURES = {
     "linreg_grad_f32": ("linreg_grad", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "rff_linreg_grad_masked_f32": ("rff_linreg_grad", _FUSED_ARGS),
     "rff_linreg_grad_masked_bf16": ("rff_linreg_grad", _FUSED_ARGS),
+    # q, k, v, k_pos, out, part_m, part_l, part_acc, B, T, H, K, hd, hd_v,
+    # q_pos, window, stream
+    "gqa_decode_f32": ("gqa_decode", _GQA_ARGS),
+    "gqa_decode_bf16": ("gqa_decode", _GQA_ARGS),
 }
 LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in SIGNATURES.values()))
 

@@ -8,8 +8,9 @@ launches the hand-written CUDA kernel on the current stream and raises if
 the launch fails; there is no fallback.  Any other device raises.
 
 The TPU padding rules of the reference (128-lane padding, block clamping,
-the zero dummy row and zero parity block of ``rff_linreg_grad_masked``) do
-not carry over: the CUDA kernels mask their ragged edges themselves.
+the zero dummy row and zero parity block of ``rff_linreg_grad_masked``, the
+KV cache padded to a multiple of ``bt`` in ``gqa_decode``) do not carry
+over: the CUDA kernels mask their ragged edges themselves.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched the CUDA
 kernel (a ``linreg_grad_masked`` call is one launch of that kernel, though
@@ -25,10 +26,16 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES = {"rff_embed": 0, "parity_encode_batched": 0,
             "linreg_grad_masked": 0, "rff_linreg_grad_masked": 0,
-            "linreg_grad": 0, "parity_encode": 0}
+            "linreg_grad": 0, "parity_encode": 0, "gqa_decode": 0}
 
 _FUSED_SYMBOLS = {torch.float32: "rff_linreg_grad_masked_f32",
                   torch.bfloat16: "rff_linreg_grad_masked_bf16"}
+_GQA_SYMBOLS = {torch.float32: "gqa_decode_f32",
+                torch.bfloat16: "gqa_decode_bf16"}
+# gqa_decode's T-chunk (kChunk in csrc/gqa_decode.cu) and the widths it takes
+GQA_CHUNK = 128
+GQA_MAX_GROUP = 16
+GQA_MAX_HEAD_DIM = 256
 
 
 def reset_launch_counts() -> None:
@@ -233,3 +240,48 @@ def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
             mask.data_ptr(), _ptr(parity_phi), r.data_ptr(), g.data_ptr(),
             rows, n, l, d, q, c, q)
     return g
+
+
+def gqa_decode(q, k, v, k_pos, q_pos: int, window: int = 0):
+    """One-token GQA attention over a KV cache:
+    q (B, H, hd), k (B, T, K, hd), v (B, T, K, hd_v), k_pos (T,) int32 slot
+    positions (-1 empty), q_pos int -> (B, H, hd_v) in q's dtype.
+
+    Valid slots have 0 <= k_pos <= q_pos and, with window > 0,
+    k_pos > q_pos - window.  q, k and v are all float32 or all bfloat16;
+    on the card one launch (a split pass and a combine pass over
+    ceil(T / 128) T-chunks, partials in ``torch.empty`` scratch)."""
+    name = "gqa_decode"
+    q_pos, window = int(q_pos), int(window)
+    if not _on_cuda(name, q, k, v, k_pos, dtype=None):
+        return ref.gqa_decode(q, k, v, k_pos, q_pos, window)
+    symbol = _GQA_SYMBOLS.get(q.dtype)
+    if symbol is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: kernel takes q, k and v all float32 or "
+                        f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k_pos.dtype != torch.int32:
+        raise TypeError(f"{name}: k_pos is int32, got {k_pos.dtype}")
+    (B, H, hd), (T, K), hd_v = q.shape, k.shape[1:3], v.shape[-1]
+    _check_shape(name, q, (B, H, hd))
+    _check_shape(name, k, (B, T, K, hd))
+    _check_shape(name, v, (B, T, K, hd_v))
+    _check_shape(name, k_pos, (T,))
+    if H % K:
+        raise ValueError(f"{name}: {H} query heads do not group over {K} "
+                         "KV heads")
+    if H // K > GQA_MAX_GROUP or max(hd, hd_v) > GQA_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: kernel takes at most {GQA_MAX_GROUP} "
+                         f"query heads per KV head and head dims up to "
+                         f"{GQA_MAX_HEAD_DIM}, got G = {H // K}, hd = {hd}, "
+                         f"hd_v = {hd_v}")
+    n_split = -(-T // GQA_CHUNK)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_m = torch.empty((B, K, n_split, H // K), **f32)
+    part_l = torch.empty((B, K, n_split, H // K), **f32)
+    part_acc = torch.empty((B, K, n_split, H // K, hd_v), **f32)
+    out = torch.empty((B, H, hd_v), dtype=q.dtype, device=q.device)
+    _launch(name, symbol, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_pos.data_ptr(), out.data_ptr(), part_m.data_ptr(),
+            part_l.data_ptr(), part_acc.data_ptr(), B, T, H, K, hd, hd_v,
+            q_pos, window)
+    return out

@@ -95,3 +95,27 @@ def rff_linreg_grad_masked(x, omega, delta, theta, y, mask, pphi=None, *,
                              "clients need the parity block pphi")
         phi = torch.cat([phi, pphi.to(f32).expand(extra, L, q)])
     return linreg_grad_masked(phi, theta.to(f32), y.to(f32), mask.to(f32))
+
+
+def gqa_decode(q, k, v, k_pos, q_pos, window: int = 0):
+    """One-token GQA decode attention over a KV cache.
+
+    q: (B, H, hd); k: (B, T, K, hd); v: (B, T, K, hd_v); k_pos: (T,) int
+    slot positions (-1 for an empty slot); q_pos: int -> (B, H, hd_v) in
+    q's dtype.  A slot is valid where k_pos >= 0, k_pos <= q_pos and, with
+    a window, k_pos > q_pos - window; the others score -1e30 (not -inf),
+    so a query with no valid slot at all averages v over every slot, as the
+    reference does.  Computed in float32.
+    """
+    B, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qr = q.reshape(B, K, G, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bkgd,btkd->bkgt", qr, k.float())
+    valid = (k_pos >= 0) & (k_pos <= q_pos)
+    if window > 0:
+        valid = valid & (k_pos > q_pos - window)
+    s = torch.where(valid[None, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return out.reshape(B, H, v.shape[-1]).to(q.dtype)

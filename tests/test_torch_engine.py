@@ -260,6 +260,12 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch, repro_torch.api, repro_torch.carry\n"
         "import repro_torch.core.rff, repro_torch.data.synthetic\n"
         "import repro_torch.data.sharding, repro_torch.kernels.build\n"
+        "import repro_torch.configs, repro_torch.data.pipeline\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.models.model_zoo, repro_torch.models.attention\n"
+        "import repro_torch.models.transformer, repro_torch.models.common\n"
+        "from repro_torch.configs import ARCH_IDS, get_config\n"
+        "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n")

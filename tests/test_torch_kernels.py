@@ -12,6 +12,11 @@ multiple of a tile, or sit one below, at and one above the reference's
 held to the same tolerance: both sides take the same bfloat16 values and
 compute in float32 (the mask stays float32).
 
+``gqa_decode``'s plain version is held to atol 1e-5 against the Pallas
+kernel (``bt=64``) at ``tests/test_kernels.py``'s decode shapes, at a T
+that is no multiple of the block, in a rolling cache's slot order, with
+whole chunks masked and with no valid slot at all.
+
 The ``cuda``-marked tests compare each CUDA kernel with its plain version
 on the card, at shapes one below, at and one above each tile multiple of
 the kernel.  They skip where there is no card.
@@ -211,6 +216,59 @@ def test_rff_embed_batched_plain_matches_pallas(n, l, d, q):
                                atol=ATOL)
 
 
+def _gqa_inputs(B, H, K, hd, hdv, T, seed=0, empty=0.1, k_pos=None):
+    """q, k, v and the slot positions: position t at slot t, a share
+    `empty` of the slots empty (-1), unless `k_pos` is given."""
+    rng = np.random.default_rng(seed)
+    q = _np((B, H, hd), seed)
+    k = _np((B, T, K, hd), seed + 1, 0.3)
+    v = _np((B, T, K, hdv), seed + 2)
+    if k_pos is None:
+        k_pos = np.where(rng.uniform(size=T) < empty, -1, np.arange(T))
+    return q, k, v, np.asarray(k_pos, np.int32)
+
+
+def _rolling_positions(T, last):
+    """A rolling cache of T slots after position `last`: slot p % T holds
+    position p for the T latest positions (slot order is not position
+    order)."""
+    k_pos = np.empty(T, np.int32)
+    for p in range(last - T + 1, last + 1):
+        k_pos[p % T] = p
+    return k_pos
+
+
+# (name, B, H, K, hd, hd_v, T, window, k_pos or None, q_pos)
+GQA_CASES = [
+    # tests/test_kernels.py DECODE_SHAPES, q_pos = T - 1
+    ("gqa", 2, 8, 2, 64, 64, 256, 0, None, 255),
+    ("mha_ragged", 2, 8, 8, 64, 64, 300, 0, None, 299),
+    ("window", 1, 16, 4, 32, 32, 128, 48, None, 127),
+    ("mla_hdv", 2, 4, 4, 16, 8, 64, 0, None, 63),
+    ("t500", 2, 8, 2, 32, 32, 500, 0, None, 499),
+    ("rolling", 2, 8, 2, 32, 32, 96, 96, _rolling_positions(96, 245), 245),
+    ("rolling_short", 1, 4, 1, 32, 32, 96, 40, _rolling_positions(96, 300),
+     300),
+    # chunks 0 and 1 outside the window, chunk 3 all empty
+    ("masked_chunks", 2, 8, 2, 32, 32, 256, 100,
+     np.r_[np.arange(192), -np.ones(64)], 191),
+    ("no_valid_slot", 1, 4, 2, 16, 16, 128, 0, -np.ones(128), 127),
+]
+
+
+@pytest.mark.parametrize("name,B,H,K,hd,hdv,T,window,k_pos,q_pos", GQA_CASES,
+                         ids=[c[0] for c in GQA_CASES])
+def test_gqa_decode_plain_matches_pallas(name, B, H, K, hd, hdv, T, window,
+                                         k_pos, q_pos):
+    q, k, v, kp = _gqa_inputs(B, H, K, hd, hdv, T, k_pos=k_pos)
+    want = ref_ops.gqa_decode(q, k, v, kp, jnp.int32(q_pos), window=window,
+                              use_pallas=True, bt=64, interpret=True)
+    got = ops.gqa_decode(*_t(q, k, v, kp), q_pos, window)
+    assert got.shape == (B, H, hdv) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+
+
 def test_cpu_calls_take_the_plain_path_and_count_nothing():
     ops.reset_launch_counts()
     x, theta, y, mask = _t(*_grad_inputs(2, 5, 6, 2))
@@ -231,9 +289,13 @@ def test_cpu_calls_take_the_plain_path_and_count_nothing():
     torch.testing.assert_close(
         ops.rff_linreg_grad_masked(*fused),
         ref.rff_linreg_grad_masked(*fused, n_real=2), rtol=0, atol=0)
+    gqa = _t(*_gqa_inputs(2, 4, 2, 8, 8, 20))
+    torch.testing.assert_close(ops.gqa_decode(*gqa, 19, 5),
+                               ref.gqa_decode(*gqa, 19, 5), rtol=0, atol=0)
     assert ops.LAUNCHES == dict.fromkeys(
         ("rff_embed", "parity_encode_batched", "linreg_grad_masked",
-         "rff_linreg_grad_masked", "linreg_grad", "parity_encode"), 0)
+         "rff_linreg_grad_masked", "linreg_grad", "parity_encode",
+         "gqa_decode"), 0)
 
 
 def test_fused_wrapper_checks_rows_against_parity():
@@ -370,8 +432,56 @@ def test_kernel_launches_are_counted(cuda):
     ops.parity_encode(g[0], w[0], xp[0])
     ops.rff_linreg_grad_masked(*_t(*_fused_inputs(2, 5, 3, 6, 2, False)[:6],
                                    device=cuda))
+    ops.gqa_decode(*_t(*_gqa_inputs(2, 4, 2, 8, 8, 20), device=cuda), 19)
     torch.cuda.synchronize()
     assert ops.LAUNCHES == {"rff_embed": 1, "parity_encode_batched": 1,
                             "linreg_grad_masked": 2,
                             "rff_linreg_grad_masked": 1, "linreg_grad": 1,
-                            "parity_encode": 1}
+                            "parity_encode": 1, "gqa_decode": 1}
+
+
+# gqa_decode splits T into 128-slot chunks: T one below, at and one above,
+# a window, empty slots, a rolling cache, G = 1 and G = 8, hd_v != hd, and
+# the head dims at the kernel's limit
+_GQA_EDGES = [
+    (2, 8, 2, 64, 64, 127, 0, None, 126),
+    (2, 8, 2, 64, 64, 128, 0, None, 127),
+    (2, 8, 2, 64, 64, 129, 0, None, 128),
+    (1, 16, 4, 32, 32, 300, 48, None, 299),
+    (2, 4, 4, 128, 128, 257, 0, None, 256),             # G = 1
+    (2, 32, 4, 128, 128, 385, 0, None, 384),            # G = 8 (yi-6b)
+    (2, 4, 4, 48, 32, 129, 0, None, 128),               # hd_v != hd
+    (1, 16, 1, 256, 256, 200, 0, None, 199),            # G = 16, hd = 256
+    (2, 8, 2, 32, 32, 96, 96, _rolling_positions(96, 245), 245),
+    (2, 8, 2, 32, 32, 256, 100, np.r_[np.arange(192), -np.ones(64)], 191),
+    (1, 4, 2, 16, 16, 130, 0, -np.ones(130), 129),     # no valid slot
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,hd,hdv,T,window,k_pos,q_pos", _GQA_EDGES)
+def test_gqa_decode_kernel_matches_plain(cuda, B, H, K, hd, hdv, T, window,
+                                         k_pos, q_pos, dtype):
+    q, k, v, kp = _t(*_gqa_inputs(B, H, K, hd, hdv, T, k_pos=k_pos),
+                     device=cuda)
+    if dtype == "bfloat16":
+        q, k, v = (a.to(torch.bfloat16) for a in (q, k, v))
+    got = ops.gqa_decode(q, k, v, kp, q_pos, window)
+    again = ops.gqa_decode(q, k, v, kp, q_pos, window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and torch.equal(got, again)
+    want = ref.gqa_decode(q, k, v, kp, q_pos, window)
+    # float32: sums in another order; bfloat16: both sides round the same
+    # float32 result to bf16, at most one ulp (2^-8 relative) apart
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    assert _max_rel_err(got.float(), want.float()) < tol
+
+
+@pytest.mark.cuda
+def test_gqa_decode_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, kp = _t(*_gqa_inputs(1, 34, 2, 16, 16, 8), device=cuda)
+    with pytest.raises(ValueError, match="at most 16"):
+        ops.gqa_decode(q, k, v, kp, 7)
+    with pytest.raises(TypeError, match="int32"):
+        ops.gqa_decode(q, k, v, kp.long(), 7)
