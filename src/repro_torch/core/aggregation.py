@@ -75,7 +75,7 @@ def fused_client_parity_tensors(sub_x, sub_y, mask, parity_x, parity_y, *,
 
 
 def fused_embed_client_gradients(x_raw, y_stack, omega, delta, theta, *,
-                                 mask, parity_phi=None):
+                                 mask, parity_phi=None, live_rows=None):
     """All-client gradients straight from RAW features in one launch.
 
     x_raw: (n, l, d), y_stack: (rows, l, c), mask: (rows, l) -> (rows, q,
@@ -83,9 +83,12 @@ def fused_embed_client_gradients(x_raw, y_stack, omega, delta, theta, *,
     gradient kernel, so the (n, l, q) embedded tensor is never made.  With
     `parity_phi` (l, q) the parity pseudo-client (already in q-space) is row
     n; its mask entries carry the coded 1/(u (1-pnr_C)) scale.
+    `live_rows` = (l_max, u) of `fused_embed_client_parity_tensors`: the
+    zero padding past them is not embedded.
     """
     return ops.rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack,
-                                      mask, parity_phi=parity_phi)
+                                      mask, parity_phi=parity_phi,
+                                      live_rows=live_rows)
 
 
 def fused_embed_client_parity_tensors(sub_x_raw, sub_y, mask, parity_x,
@@ -98,7 +101,9 @@ def fused_embed_client_parity_tensors(sub_x_raw, sub_y, mask, parity_x,
     Returns (fx, fy, fmask, pphi): fx (n, L, d) raw client rows only (the
     fused kernel reads the parity row from pphi), fy/fmask (n+1, L, .) with
     the parity labels and its 1/(u (1-pnr_C))-scaled mask row, and pphi
-    (L, q) the parity block.  L = max(l_max, u, l_target).
+    (L, q) the parity block.  L = max(l_max, u, l_target).  Past l_max
+    client rows and past u parity rows x, y, mask and pphi are zero: the
+    fused round passes live_rows = (l_max, u) and skips them.
     """
     n, l_max, d = sub_x_raw.shape
     c = sub_y.shape[-1]

@@ -118,7 +118,8 @@ def build_step(static: dict):
     (rows - n,); coded adds t_star () and active (n,) and, when unfused,
     par_x (u, q) / par_y (u, c); ideal adds t_ideal ().  With fused_embed
     gx is the raw (n, L, d) tensor, and omega (d, q), delta (q,) and, on
-    the fused coded round, pphi (L, q) come along.
+    the fused coded round, pphi (L, q) and live_rows (l_max, u), the rows
+    of gx and of pphi that are not zero padding, come along.
     ``carry`` is ``(theta, lr_scale)``; ``inp`` is ``(t_row, lr)``, the
     round's float32 delays (n,) and learning rate.  ``out`` is
     ``(t_round, n_ret, n_masked, skipped)``, 0-dim tensors.
@@ -167,7 +168,8 @@ def build_step(static: dict):
         if fused_embed:
             g = aggregation.fused_embed_client_gradients(
                 consts["gx"], consts["gy"], consts["omega"], consts["delta"],
-                theta, mask=consts["gmask"], parity_phi=consts.get("pphi"))
+                theta, mask=consts["gmask"], parity_phi=consts.get("pphi"),
+                live_rows=consts.get("live_rows"))
         else:
             g = aggregation.batched_client_gradients(
                 consts["gx"], consts["gy"], theta, mask=consts["gmask"])

@@ -1,5 +1,4 @@
-// Batched float32 GEMM tile shared by rff_embed.cu, parity_encode.cu and
-// rff_linreg_grad.cu.
+// Batched float32 GEMM tile shared by rff_embed.cu and parity_encode.cu.
 //
 //   C_b[i, j] = epi(j, sum_k A_b[i, k] * s_b[k] * B_b[k, j])
 //

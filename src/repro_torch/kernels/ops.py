@@ -20,6 +20,9 @@ it runs as two CUDA grids; ``linreg_grad_batched`` is a launch of
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build, ref
@@ -36,6 +39,22 @@ _GQA_SYMBOLS = {torch.float32: "gqa_decode_f32",
 GQA_CHUNK = 128
 GQA_MAX_GROUP = 16
 GQA_MAX_HEAD_DIM = 256
+
+# linreg_grad (csrc/linreg_grad.cu): q columns per block of the X^T r pass,
+# the fewest rows one L split walks, and q columns per partial residual
+LG_COLS = 128
+LG_MIN_ROWS = 32
+LG_QB = 512
+# the fused kernel's layout (csrc/rff_linreg_grad.cu): columns of an
+# embedding tile, CTAs of a cluster, slab heights, the staging area, the
+# label columns per pass, and the shared memory of a block and of an SM
+FUSED_TILE_N = 256
+FUSED_MAX_CLUSTER = 8
+FUSED_SLAB_ROWS = (64, 32, 16)
+FUSED_STAGE_BYTES = 34560
+FUSED_CMAX = 16
+FUSED_MAX_SMEM = 232448
+SM_SMEM = 233472
 
 
 def reset_launch_counts() -> None:
@@ -84,6 +103,88 @@ def _launch(name: str, symbol: str, device, *args) -> None:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_clusters(index: int, bf16: int, slab_rows: int, cluster: int,
+                       cols_per_cta: int) -> int:
+    """Clusters of the fused kernel's shape that device `index` holds at
+    once (cudaOccupancyMaxActiveClusters)."""
+    with torch.cuda.device(index):
+        n = build.kernel("rff_linreg_grad_max_clusters")(
+            bf16, slab_rows, cluster, cols_per_cta)
+    if n < 0:
+        raise RuntimeError("rff_linreg_grad_masked: occupancy query failed "
+                           f"with cudaError_t {-n}")
+    return n
+
+
+def linreg_grad_splits(m: int, q: int, n_sm: int) -> int:
+    """L splits of ``linreg_grad``'s X^T r pass: enough (q tile, split)
+    blocks for four per SM, each split at least LG_MIN_ROWS rows."""
+    q_tiles = -(-q // LG_COLS)
+    return max(1, min(-(-4 * n_sm // q_tiles), -(-m // LG_MIN_ROWS)))
+
+
+class FusedPlan(NamedTuple):
+    """Launch plan of the fused kernel: rows of phi per slab, CTAs per
+    cluster, columns of q per CTA, and the groups of slabs (one cluster
+    each) of a raw row and of the parity row."""
+    slab_rows: int
+    cluster: int
+    cols_per_cta: int
+    groups_raw: int
+    groups_par: int
+
+
+def fused_smem_bytes(slab_rows: int, cols_per_cta: int) -> int:
+    """A CTA's shared memory: the staging area, the partial and the full
+    residual (slab_rows, 16), and its (slab_rows, cols_per_cta + 4) part of
+    phi, all float32."""
+    return (FUSED_STAGE_BYTES + 2 * slab_rows * FUSED_CMAX * 4
+            + slab_rows * (cols_per_cta + 4) * 4)
+
+
+def fused_max_q() -> int:
+    """The widest q the fused kernel takes: 8 CTAs of the most columns
+    whose 16-row slab of phi fits a block's shared memory."""
+    rows = FUSED_SLAB_ROWS[-1]
+    cols = ((FUSED_MAX_SMEM - fused_smem_bytes(rows, 0)) // (4 * rows)
+            // FUSED_TILE_N * FUSED_TILE_N)
+    return FUSED_MAX_CLUSTER * cols
+
+
+def fused_plan(q: int, n_real: int, live: tuple, resident) -> FusedPlan:
+    """Split q over a cluster of up to 8 CTAs in whole 256-column tiles and
+    take the tallest slab whose phi fits a CTA's shared memory.  Then cut
+    the slabs of every row into groups (one cluster each) of at most
+    `chain` slabs: all slabs over the clusters the card holds at once,
+    ``resident(slab_rows, cluster, cols_per_cta)``.  ``live`` = (raw,) or
+    (raw, parity) live row counts.  Raises ValueError past
+    ``fused_max_q()``."""
+    cluster = min(FUSED_MAX_CLUSTER, -(-q // FUSED_TILE_N))
+    cols = -(-(-(-q // cluster)) // FUSED_TILE_N) * FUSED_TILE_N
+    cluster = -(-q // cols)
+    for slab in FUSED_SLAB_ROWS:
+        smem = fused_smem_bytes(slab, cols)
+        if smem <= FUSED_MAX_SMEM:
+            break
+    else:
+        raise ValueError(
+            f"rff_linreg_grad_masked: q = {q} is wider than the fused "
+            f"kernel takes ({fused_max_q()}: {FUSED_MAX_CLUSTER} CTAs of a "
+            f"cluster, each holding a {FUSED_SLAB_ROWS[-1]}-row slab of phi "
+            f"in {FUSED_MAX_SMEM} bytes of shared memory)")
+    slabs = [max(1, -(-n // slab)) for n in live] + [1]
+    total = n_real * slabs[0] + sum(slabs[1:-1])
+    chain = -(-total // max(1, resident(slab, cluster, cols)))
+    return FusedPlan(slab, cluster, cols, -(-slabs[0] // chain),
+                     -(-slabs[1] // chain))
 
 
 def rff_embed(x, omega, delta, q_true: int | None = None):
@@ -149,12 +250,14 @@ def linreg_grad(x, theta, y):
     _check_shape("linreg_grad", x, (m, q))
     _check_shape("linreg_grad", theta, (q, c))
     _check_shape("linreg_grad", y, (m, c))
-    theta_t = theta.t().contiguous()
-    r = torch.empty((m, c), dtype=torch.float32, device=x.device)
-    g = torch.empty((q, c), dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    splits = linreg_grad_splits(m, q, _sm_count(x.device.index or 0))
+    r = torch.empty((-(-q // LG_QB), m, c), **f32)
+    part = torch.empty((splits, q, c), **f32) if splits > 1 else None
+    g = torch.empty((q, c), **f32)
     _launch("linreg_grad", "linreg_grad_f32", x.device, x.data_ptr(),
-            theta_t.data_ptr(), y.data_ptr(), r.data_ptr(), g.data_ptr(), m,
-            q, c)
+            theta.data_ptr(), y.data_ptr(), r.data_ptr(), _ptr(part),
+            g.data_ptr(), m, q, c, splits)
     return g
 
 
@@ -195,7 +298,7 @@ def linreg_grad_batched(x, theta, y):
 
 
 def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
-                           parity_phi=None):
+                           parity_phi=None, live_rows=None):
     """Fused RFF embedding -> per-client masked gradients from RAW features.
 
     x_raw: (n, l, d), omega: (d, q), delta: (q,), theta: (q, c),
@@ -207,16 +310,34 @@ def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
     x, omega, delta, theta, y and parity_phi are all float32 or all
     bfloat16; the mask is float32 (the parity row's 1/u scale), and so is
     the result.  On the card the (rows, l, q) embedded tensor is never
-    allocated: one launch embeds tile by tile in shared memory.
+    allocated: one launch embeds each phi element once, in shared memory.
+
+    ``live_rows`` = (raw, parity) is the number of leading rows that may be
+    non-zero: ``raw`` for each of the n raw clients, ``parity`` for the
+    parity row (read only with parity_phi), each in [1, l].  Default: every
+    row.  Contract: past its count a row holds x = 0, y = 0 and mask = 0
+    (parity_phi rows too), as
+    ``aggregation.fused_embed_client_parity_tensors`` writes its padding.
+    The kernel neither embeds nor reads those rows, and the result is the
+    same: a padding row's term phi^T (mask (phi theta - y)) is
+    0 * (finite) = +0 for finite theta, Omega and delta.  Where one of them
+    is not finite, row 0 of the same client (always live while any row is)
+    is already NaN or infinite, so g_b is not finite either way.  Rows with
+    mask 0 inside the live range are computed, so a NaN feature there
+    propagates as in the reference.
     """
     name = "rff_linreg_grad_masked"
     extra = () if parity_phi is None else (parity_phi,)
     inputs = (x_raw, omega, delta, theta, y_stack, *extra)
     n, l, d = x_raw.shape
+    live = (l, l) if live_rows is None else tuple(int(v) for v in live_rows)
+    if len(live) != 2 or not all(1 <= v <= l for v in live):
+        raise ValueError(f"{name}: live_rows must be two counts in [1, {l}],"
+                         f" got {live_rows}")
     if not _on_cuda(name, *inputs, mask, dtype=None):
         return ref.rff_linreg_grad_masked(x_raw, omega, delta, theta,
                                           y_stack, mask, parity_phi,
-                                          n_real=n)
+                                          n_real=n, live_rows=live_rows)
     symbol = _FUSED_SYMBOLS.get(x_raw.dtype)
     if symbol is None or any(t.dtype != x_raw.dtype for t in inputs):
         raise TypeError(f"{name}: kernel takes x, omega, delta, theta, y "
@@ -233,12 +354,18 @@ def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
     _check_shape(name, mask, (rows, l))
     if parity_phi is not None:
         _check_shape(name, parity_phi, (l, q))
-    r = torch.empty((rows, l, c), dtype=torch.float32, device=x_raw.device)
-    g = torch.empty((rows, q, c), dtype=torch.float32, device=x_raw.device)
+    plan = fused_plan(q, n, live[:rows - n + 1], functools.partial(
+        _resident_clusters, x_raw.device.index or 0,
+        int(x_raw.dtype == torch.bfloat16)))
+    f32 = dict(dtype=torch.float32, device=x_raw.device)
+    clusters = n * plan.groups_raw + (rows - n) * plan.groups_par
+    part = (torch.empty((clusters, q, c), **f32)
+            if clusters > rows else None)
+    g = torch.empty((rows, q, c), **f32)
     _launch(name, symbol, x_raw.device, x_raw.data_ptr(), omega.data_ptr(),
             delta.data_ptr(), theta.data_ptr(), y_stack.data_ptr(),
-            mask.data_ptr(), _ptr(parity_phi), r.data_ptr(), g.data_ptr(),
-            rows, n, l, d, q, c, q)
+            mask.data_ptr(), _ptr(parity_phi), _ptr(part), g.data_ptr(),
+            rows, n, l, d, q, c, q, live[0], live[1], *plan)
     return g
 
 

@@ -71,7 +71,8 @@ def parity_encode_batched(g, w, x):
 
 
 def rff_linreg_grad_masked(x, omega, delta, theta, y, mask, pphi=None, *,
-                           n_real: int, q_true: int | None = None):
+                           n_real: int, q_true: int | None = None,
+                           live_rows=None):
     """Fused RFF embedding -> per-row-masked gradients (eq. 18 + 7/10).
 
     x: (>= n_real, L, d) raw features (rows past n_real are not read),
@@ -80,21 +81,33 @@ def rff_linreg_grad_masked(x, omega, delta, theta, y, mask, pphi=None, *,
       phi_b = sqrt(2/q_true) cos(x_b @ omega + delta)   for b <  n_real,
       phi_b = pphi                                      for b >= n_real,
       g_b   = phi_b^T diag(mask_b) (phi_b @ theta - y_b).
+    ``live_rows`` = (raw, parity) slices each raw client to its first
+    ``raw`` rows and the parity rows to their first ``parity`` rows; where
+    the rows past them hold x = 0, y = 0 and mask = 0 the result is the
+    same as without it (``ops.rff_linreg_grad_masked`` says why).
     Every input is upcast to float32 first (bf16 inputs too), as the
     reference's fallback does.
     """
     f32 = torch.float32
     _, L, d = x.shape
     q = omega.shape[1]
-    phi = rff_embed(x[:n_real].to(f32).reshape(n_real * L, d),
-                    omega.to(f32), delta.to(f32), q_true).reshape(n_real, L, q)
+    lr, lp = (L, L) if live_rows is None else live_rows
     extra = y.shape[0] - n_real
+    if extra and pphi is None:
+        raise ValueError(f"{y.shape[0]} rows of labels for {n_real} raw "
+                         "clients need the parity block pphi")
+    theta = theta.to(f32)
+    phi = rff_embed(x[:n_real, :lr].to(f32).reshape(n_real * lr, d),
+                    omega.to(f32), delta.to(f32),
+                    q_true).reshape(n_real, lr, q)
+    g = linreg_grad_masked(phi, theta, y[:n_real, :lr].to(f32),
+                           mask[:n_real, :lr].to(f32))
     if extra:
-        if pphi is None:
-            raise ValueError(f"{y.shape[0]} rows of labels for {n_real} raw "
-                             "clients need the parity block pphi")
-        phi = torch.cat([phi, pphi.to(f32).expand(extra, L, q)])
-    return linreg_grad_masked(phi, theta.to(f32), y.to(f32), mask.to(f32))
+        phi = pphi[:lp].to(f32).expand(extra, lp, q)
+        g = torch.cat([g, linreg_grad_masked(phi, theta,
+                                             y[n_real:, :lp].to(f32),
+                                             mask[n_real:, :lp].to(f32))])
+    return g
 
 
 def gqa_decode(q, k, v, k_pos, q_pos, window: int = 0):

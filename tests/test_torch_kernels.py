@@ -17,9 +17,16 @@ kernel (``bt=64``) at ``tests/test_kernels.py``'s decode shapes, at a T
 that is no multiple of the block, in a rolling cache's slot order, with
 whole chunks masked and with no valid slot at all.
 
+The fused kernel's ``live_rows`` (the leading rows that may be non-zero)
+is held against the same function over every row, on inputs that are zero
+past the live counts, and against the Pallas kernel; its launch plan is
+checked to take every q that the Pallas kernel's VMEM check admits.
+
 The ``cuda``-marked tests compare each CUDA kernel with its plain version
 on the card, at shapes one below, at and one above each tile multiple of
-the kernel.  They skip where there is no card.
+the kernel (for the fused kernel also at cluster and slab edges, with live
+counts at 1, a slab edge +- 1 and L, and NaN inputs), and check that two
+launches give the same bits.  They skip where there is no card.
 """
 import numpy as np
 import pytest
@@ -172,6 +179,177 @@ def test_rff_linreg_grad_masked_nan_in_masked_row_propagates():
     np.testing.assert_allclose(got[0].numpy(), want[0], rtol=RTOL, atol=ATOL)
 
 
+def _zero_past(arrays, n, live_raw, live_par):
+    """The fused inputs with every row past the live counts zeroed (x, y,
+    mask and the parity block), as the fused round pads them."""
+    x, omega, delta, theta, y, mask, pphi = (None if a is None else a.copy()
+                                             for a in arrays)
+    x[:, live_raw:] = 0.0
+    y[:n, live_raw:] = 0.0
+    mask[:n, live_raw:] = 0.0
+    if pphi is not None:
+        y[n:, live_par:] = 0.0
+        mask[n:, live_par:] = 0.0
+        pphi[live_par:] = 0.0
+    return x, omega, delta, theta, y, mask, pphi
+
+
+# live counts of 1, one below, at and one above a 64-row slab, and every
+# row; the parity row's count differs from the clients'
+_LIVE = [(1, 1), (63, 130), (64, 65), (65, 64), (130, 1)]
+
+
+@pytest.mark.parametrize("parity", [False, True], ids=["clients", "parity"])
+@pytest.mark.parametrize("live", _LIVE, ids=[f"{a}-{b}" for a, b in _LIVE])
+def test_rff_linreg_grad_masked_live_rows_change_nothing(live, parity):
+    """The plain version with live_rows equals the plain version without
+    them, and the Pallas kernel, on inputs zero past the live counts."""
+    n = 2
+    arrays = _zero_past(_fused_inputs(n, 130, 19, 45, 3, parity), n, *live)
+    x, omega, delta, theta, y, mask, pphi = arrays
+    tpp = None if pphi is None else torch.from_numpy(pphi)
+    args = (*_t(x, omega, delta, theta, y, mask),)
+    every = ops.rff_linreg_grad_masked(*args, parity_phi=tpp)
+    got = ops.rff_linreg_grad_masked(*args, parity_phi=tpp, live_rows=live)
+    want = ref_ops.rff_linreg_grad_masked(
+        x, omega, delta, theta, y, mask, parity_phi=pphi, use_pallas=True,
+        interpret=True)
+    np.testing.assert_allclose(got.numpy(), every.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("live", [None, (5, 3)], ids=["every", "live"])
+def test_rff_linreg_grad_masked_nan_theta_poisons_every_row(live):
+    """A NaN in theta makes every g_b NaN with and without live rows (row
+    0 is always live), as in the reference."""
+    n = 2
+    arrays = _zero_past(_fused_inputs(n, 9, 5, 7, 2, True), n, 5, 3)
+    x, omega, delta, theta, y, mask, pphi = arrays
+    theta[3, 1] = np.nan
+    want = np.asarray(ref_ops.rff_linreg_grad_masked(
+        x, omega, delta, theta, y, mask, parity_phi=pphi, use_pallas=True,
+        interpret=True))
+    got = ops.rff_linreg_grad_masked(*_t(x, omega, delta, theta, y, mask),
+                                     parity_phi=torch.from_numpy(pphi),
+                                     live_rows=live)
+    assert np.isnan(want[:, :, 1]).all()
+    np.testing.assert_array_equal(torch.isnan(got).numpy(), np.isnan(want))
+
+
+def test_rff_linreg_grad_masked_nan_in_masked_live_row_propagates():
+    """A NaN feature in a masked row inside the live range still poisons
+    that client's gradient with live rows."""
+    n = 2
+    arrays = _zero_past(_fused_inputs(n, 9, 5, 7, 2, False), n, 6, 6)
+    x, omega, delta, theta, y, mask, _ = arrays
+    mask[1, 4] = 0.0
+    x[1, 4, 2] = np.nan
+    want = np.asarray(ref_ops.rff_linreg_grad_masked(
+        x, omega, delta, theta, y, mask, use_pallas=True, interpret=True))
+    got = ops.rff_linreg_grad_masked(*_t(x, omega, delta, theta, y, mask),
+                                     live_rows=(6, 6))
+    assert np.isnan(want[1]).all() and torch.isnan(got[1]).all()
+    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("live", [(0, 3), (3, 10), (3,), (1, 2, 3)])
+def test_rff_linreg_grad_masked_refuses_bad_live_rows(live):
+    fused = _t(*_fused_inputs(2, 9, 5, 7, 2, False)[:6])
+    with pytest.raises(ValueError, match="live_rows"):
+        ops.rff_linreg_grad_masked(*fused, live_rows=live)
+
+
+def _H100(slab_rows, cluster, cols_per_cta):
+    """Clusters at once on 132 SMs of 233472 bytes of shared memory each,
+    counting SMs only (no GPC boundaries)."""
+    per_sm = ops.SM_SMEM // (ops.fused_smem_bytes(slab_rows, cols_per_cta)
+                             + 1024)
+    return per_sm * 132 // cluster
+
+
+def _jax_max_q(d, c, dtype):
+    """The widest q that the Pallas kernel's VMEM check admits at its
+    default blocks (bm = bq = 128)."""
+    from repro.kernels.rff_linreg_grad import _check_fused_vmem
+    lo, hi = 128, 1 << 16
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            _check_fused_vmem(d, mid, c, 128, 128, dtype)
+            lo = mid
+        except ValueError:
+            hi = mid
+    return lo
+
+
+@pytest.mark.parametrize("d,c,dtype", [(784, 10, "float32"),
+                                       (784, 10, "bfloat16"),
+                                       (1, 1, "float32"), (1, 1, "bfloat16"),
+                                       (16, 40, "bfloat16")])
+def test_fused_plan_takes_every_q_the_pallas_kernel_takes(d, c, dtype):
+    """The fused kernel's limit on q is no lower than the reference's at
+    its defaults; past its own limit the plan raises a clear ValueError."""
+    jax_q = _jax_max_q(d, c, jnp.dtype(dtype))
+    assert ops.fused_max_q() >= jax_q
+    for q in (1, 255, 256, 257, 2000, 2049, jax_q, ops.fused_max_q()):
+        plan = ops.fused_plan(q, 30, (400, 2400), _H100)
+        assert plan.cluster <= ops.FUSED_MAX_CLUSTER
+        assert (plan.cluster - 1) * plan.cols_per_cta < q \
+            <= plan.cluster * plan.cols_per_cta
+        assert ops.fused_smem_bytes(plan.slab_rows, plan.cols_per_cta) \
+            <= ops.FUSED_MAX_SMEM
+    with pytest.raises(ValueError, match="wider than the fused kernel"):
+        ops.fused_plan(ops.fused_max_q() + 1, 30, (400, 2400), _H100)
+
+
+def test_fused_plan_at_the_main_shape():
+    """q = 2000 over a cluster of 8 CTAs, 64-row slabs, two CTAs an SM.
+    Live rows (400, 2400): 7 slabs a client and 38 on the parity row, 248
+    in all.  At most 8 of them a cluster fill 33 clusters at once (132 SMs)
+    or 30 (what the H100 reported): one group a client, five on the parity
+    row."""
+    assert ops.SM_SMEM // (ops.fused_smem_bytes(64, 256) + 1024) == 2
+    assert ops.fused_plan(2000, 30, (400, 2400), _H100) == \
+        ops.FusedPlan(64, 8, 256, 1, 5)
+    assert ops.fused_plan(2000, 30, (400, 2400), lambda *a: 30)[3:] == (1, 5)
+    # every row live: 38 slabs a row, 1178 in all: chains of 36 at 33
+    # clusters at once, of 40 at 30
+    assert ops.fused_plan(2000, 30, (2400, 2400), _H100)[3:] == (2, 2)
+    assert ops.fused_plan(2000, 30, (2400, 2400), lambda *a: 30)[3:] == (1, 1)
+    # no parity row; few rows: a group per slab
+    assert ops.fused_plan(2000, 30, (400,), _H100)[3:] == (1, 1)
+    assert ops.fused_plan(200, 3, (130,), _H100).groups_raw == 3
+
+
+@pytest.mark.parametrize("n_real,live,resident",
+                         [(30, (400, 2400), 30), (30, (2400, 2400), 30),
+                          (1, (64, 64), 1), (3, (2560,), 8),
+                          (31, (100,), 264)])
+def test_fused_groups_spread_the_slabs(n_real, live, resident):
+    """Every group has a slab, no group is longer than the chain the card
+    needs at its occupancy, and the clusters stay within one a slab."""
+    plan = ops.fused_plan(2000, n_real, live, lambda *a: resident)
+    slabs = [-(-n // plan.slab_rows) for n in live]
+    total = n_real * slabs[0] + sum(slabs[1:])
+    chain = -(-total // resident)
+    groups = (plan.groups_raw, plan.groups_par)[:len(live)]
+    for n, g in zip(slabs, groups):
+        assert 1 <= g <= n and -(-n // g) <= chain
+
+
+@pytest.mark.parametrize("m,q,splits", [(2400, 2000, 33), (400, 2000, 13),
+                                        (31, 129, 1), (33, 129, 2)])
+def test_linreg_grad_splits_fill_the_card(m, q, splits):
+    """linreg_grad's X^T r pass splits L so that the parity set (2400,
+    2000) and a legacy client (400, 2000) each launch >= 132 blocks."""
+    got = ops.linreg_grad_splits(m, q, 132)
+    assert got == splits
+    if m >= 400:
+        assert -(-q // ops.LG_COLS) * got >= 132
+
+
 @pytest.mark.parametrize("m,q,c", [(37, 45, 3), (129, 127, 10),
                                    (128, 129, 17)])
 def test_linreg_grad_plain_matches_pallas(m, q, c):
@@ -314,6 +492,45 @@ def test_wrapper_refuses_other_devices():
         ops.rff_embed(cpu[0], cpu[1], delta)
 
 
+def _c_entry_points():
+    """{symbol: [parameter declarations]} of every extern "C" function in
+    the kernel sources."""
+    import re
+    found = {}
+    for src in build.CSRC.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\((.*?)\)\s*\{',
+                                       src.read_text(), re.S):
+            found[name] = [p.strip() for p in params.split(",")]
+    return found
+
+
+def test_c_signatures_match_the_sources():
+    """Each ctypes signature has the arity and the pointer/int kinds of the
+    C function it binds (a missing int would pass the stream truncated)."""
+    entry = _c_entry_points()
+    assert set(build.SIGNATURES) <= set(entry)
+    for symbol, (_, argtypes) in build.SIGNATURES.items():
+        params = entry[symbol]
+        assert len(params) == len(argtypes), symbol
+        for decl, kind in zip(params, argtypes):
+            pointer = "*" in decl or decl.startswith("cudaStream_t")
+            assert pointer == (kind is build._P), (symbol, decl)
+
+
+def test_fused_layout_constants_match_the_source():
+    src = (build.CSRC / "rff_linreg_grad.cu").read_text()
+    for c_name, value in (("TILE_N", ops.FUSED_TILE_N),
+                          ("CMAX", ops.FUSED_CMAX),
+                          ("MAX_CLUSTER", ops.FUSED_MAX_CLUSTER),
+                          ("STAGE_BYTES", ops.FUSED_STAGE_BYTES),
+                          ("MAX_SMEM", ops.FUSED_MAX_SMEM)):
+        assert f"constexpr int {c_name} = {value};" in src, c_name
+    assert "PHI_PAD = 4;" in src
+    lg = (build.CSRC / "linreg_grad.cu").read_text()
+    assert f"constexpr int XTR_THREADS = {ops.LG_COLS};" in lg
+    assert f"constexpr int LG_QB = {ops.LG_QB};" in lg
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(build.os.path, "exists", lambda p: False)
@@ -367,9 +584,19 @@ def test_parity_encode_batched_kernel_matches_plain(cuda, n, u, l, q):
     assert _max_rel_err(got, ref.parity_encode_batched(*args)) < 1e-5
 
 
-# the fused kernel tiles L and q by 64, d by 16 and c by 16
+# the fused kernel: 64-row slabs (32 or 16 where q is wide), 256-column
+# embedding tiles, clusters of up to 8 CTAs of 256 or more columns, K steps
+# of 8 (f32) or 16 (bf16), 16-byte copies where d and q allow, c chunks of
+# 16.  Edges: slab, tile and K edges; clusters of 2 and 3 CTAs (q = 511,
+# 512, 513), of 8 (q = 2000) and of 5 CTAs of 512 columns whose last tile
+# lies past q (q = 2049); 32-row (q = 6200) and 16-row (q = 20000) slabs;
+# c = 33 (three chunks)
 _FUSED_EDGES = [(1, 63, 15, 63, 15), (1, 64, 16, 64, 16),
-                (2, 65, 17, 65, 17), (3, 130, 784, 200, 10)]
+                (2, 65, 17, 65, 17), (3, 130, 784, 200, 10),
+                (2, 130, 64, 511, 10), (2, 129, 48, 512, 17),
+                (1, 65, 33, 513, 3), (2, 200, 784, 2000, 10),
+                (1, 70, 24, 2049, 5), (1, 70, 16, 6200, 3),
+                (1, 40, 8, 20000, 2), (2, 66, 40, 300, 33)]
 
 
 @pytest.mark.cuda
@@ -393,14 +620,82 @@ def test_rff_linreg_grad_masked_kernel_matches_plain(cuda, n, L, d, q, c,
     assert _max_rel_err(got, want) < 1e-4
 
 
+def _fused_on(cuda, arrays, dtype):
+    """The fused inputs on the card: x, omega, delta, theta, y in `dtype`,
+    the mask float32, and the parity block."""
+    *args, pphi = [None if a is None else torch.from_numpy(a).to(cuda)
+                   for a in arrays]
+    if dtype == "bfloat16":
+        args = [a if i == 5 else a.to(torch.bfloat16)
+                for i, a in enumerate(args)]
+        pphi = None if pphi is None else pphi.to(torch.bfloat16)
+    return args, pphi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("parity", [False, True], ids=["clients", "parity"])
+@pytest.mark.parametrize("live", _LIVE, ids=[f"{a}-{b}" for a, b in _LIVE])
+@pytest.mark.parametrize("q", [200, 513])
+def test_rff_linreg_grad_masked_kernel_live_rows(cuda, q, live, parity,
+                                                 dtype):
+    """Live counts of 1, a slab edge +- 1 and L: the kernel with live_rows
+    against the plain version over every row, on inputs zero past them."""
+    n = 2
+    arrays = _zero_past(_fused_inputs(n, 130, 48, q, 17, parity), n, *live)
+    args, pphi = _fused_on(cuda, arrays, dtype)
+    got = ops.rff_linreg_grad_masked(*args, parity_phi=pphi, live_rows=live)
+    again = ops.rff_linreg_grad_masked(*args, parity_phi=pphi,
+                                       live_rows=live)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ref.rff_linreg_grad_masked(*args, pphi, n_real=n)
+    assert _max_rel_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("live", [None, (70, 40)], ids=["every", "live"])
+def test_rff_linreg_grad_masked_kernel_propagates_nan(cuda, live, dtype):
+    """On the card, as in the plain version: a NaN feature in a masked live
+    row poisons that client's g_b, and a NaN theta column poisons that
+    column of every g_b."""
+    n = 3
+    arrays = _zero_past(_fused_inputs(n, 130, 48, 513, 5, True), n, 70, 40)
+    arrays[5][1, 30] = 0.0
+    arrays[0][1, 30, 7] = np.nan
+    args, pphi = _fused_on(cuda, arrays, dtype)
+    got = ops.rff_linreg_grad_masked(*args, parity_phi=pphi, live_rows=live)
+    torch.cuda.synchronize()
+    want = ref.rff_linreg_grad_masked(*args, pphi, n_real=n)
+    assert torch.isnan(got[1]).all() and torch.isnan(want[1]).all()
+    keep = [0, 2, 3]
+    assert _max_rel_err(got[keep], want[keep]) < 1e-4
+    args[3][100, 2] = float("nan")
+    got = ops.rff_linreg_grad_masked(*args, parity_phi=pphi, live_rows=live)
+    torch.cuda.synchronize()
+    want = ref.rff_linreg_grad_masked(*args, pphi, n_real=n)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[:, :, 2]).all()
+
+
+# linreg_grad splits L over 32-row-or-longer splits: one split (m < 33),
+# two, a ragged last split, the legacy client (400, 2000) and the parity set
+# (2400, 2000); q one below, at and one above the 128-column tile, and q
+# not a multiple of 4 (scalar residual loads)
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,q,c", [(63, 127, 15), (64, 128, 16),
-                                   (65, 129, 17), (2400, 200, 10)])
+                                   (65, 129, 17), (2400, 200, 10),
+                                   (31, 129, 10), (33, 130, 10),
+                                   (1001, 64, 3), (70, 1025, 33),
+                                   (400, 2000, 10), (2400, 2000, 10)])
 def test_linreg_grad_kernel_matches_plain(cuda, m, q, c):
     x, theta, y, _ = _grad_inputs(1, m, q, c)
     args = _t(x[0], theta, y[0], device=cuda)
     got = ops.linreg_grad(*args)
+    again = ops.linreg_grad(*args)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)      # no atomics: reruns give the bits
     assert _max_rel_err(got, ref.linreg_grad(*args)) < 1e-5
     xs, th, ys = _t(x, theta, y, device=cuda)
     got = ops.linreg_grad_batched(xs, th, ys)

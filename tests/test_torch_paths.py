@@ -20,8 +20,10 @@ on the fused_embed path the (Omega, delta) its ``Experiment`` draws from
     in another order feed f(X) of eq. 62).
 
 Also: ``encode_local`` + ``aggregate_parity`` with the same generators, the
-fused path against its two-pass control inside the port, and the spec
-combinations that both packages refuse.
+fused path against its two-pass control inside the port, the zero padding
+past the live rows (l_max client rows, u parity rows) that the fused coded
+round tells the kernel to skip, and the spec combinations that both
+packages refuse.
 """
 import dataclasses
 
@@ -198,6 +200,60 @@ def test_fused_embed_tensors_match_reference():
         pnr_c=0.1, l_target=9)
     for g_t, w_t in zip(got, want):
         np.testing.assert_array_equal(g_t.numpy(), np.asarray(w_t))
+
+
+@pytest.mark.parametrize("l_max,u,l_target", [(5, 9, None), (9, 5, None),
+                                             (4, 6, 11)])
+def test_fused_embed_tensors_are_zero_past_live_rows(l_max, u, l_target):
+    """The guarantee the fused round's row skip rests on: past l_max the
+    client rows of x, y and mask are zero, and past u so are the parity
+    row's labels, mask and block pphi."""
+    n, d, q, c = 3, 4, 6, 2
+    rng = np.random.default_rng(5)
+    args = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            for shape in ((n, l_max, d), (n, l_max, c), (n, l_max),
+                          (u, q), (u, c))]
+    fx, fy, fmask, pphi = t_agg.fused_embed_client_parity_tensors(
+        *args, pnr_c=0.1, l_target=l_target)
+    big = max(l_max, u, l_target or 1)
+    assert fx.shape == (n, big, d) and pphi.shape == (big, q)
+    for t in (fx[:, l_max:], fy[:n, l_max:], fmask[:n, l_max:],
+              fy[n, u:], fmask[n, u:], pphi[u:]):
+        assert not t.any()
+    assert torch.equal(fx[:, :l_max], args[0])
+    assert torch.equal(pphi[:u], args[3])
+
+
+@pytest.mark.parametrize("scheme", ["coded", "partial_coded"])
+def test_fused_embed_round_skips_padding_and_matches_reference(scheme,
+                                                              monkeypatch):
+    """The fused coded round hands the kernel live_rows = (l_max, u) every
+    round, and still takes the reference's rounds and theta (the tolerance
+    of test_fused_embed_matches_reference)."""
+    from repro_torch.kernels import ops
+    xs, ys = _raw_data()
+    ref_spec = _fused_spec(ref_config, scheme)
+    ref_exp = ref_api.build_experiment(ref_spec, xs, ys)
+    omega, delta = ref_rff.rff_params(ref_spec.rff, D)
+    t_exp = _port_twin(
+        ref_exp, _fused_spec(t_config, scheme), xs, ys,
+        rff_draw=carry.rff_from_reference(np.asarray(omega),
+                                          np.asarray(delta), device="cpu"))
+    consts = t_exp.build_consts()
+    l_max, u = int(t_exp.loads.max()), t_exp.u
+    assert consts["live_rows"] == (l_max, u)
+    assert consts["gmask"].shape[1] > min(l_max, u)   # there is padding
+    seen = []
+    kernel = ops.rff_linreg_grad_masked
+
+    def spy(*args, **kw):
+        seen.append(kw.get("live_rows"))
+        return kernel(*args, **kw)
+    monkeypatch.setattr(ops, "rff_linreg_grad_masked", spy)
+    ref_res = ref_exp.run(ROUNDS, eval_fn=_trace, eval_every=1)
+    t_res = t_exp.run(ROUNDS, eval_fn=_trace, eval_every=1)
+    assert seen == [(l_max, u)] * ROUNDS
+    _assert_same_run(t_exp, t_res, ref_exp, ref_res, eps_rtol=1e-5)
 
 
 def test_rff_draw_is_checked():
