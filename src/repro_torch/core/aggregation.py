@@ -21,15 +21,22 @@ import torch
 from repro_torch.kernels import ops
 
 
-def batched_client_gradients(x_stack, y_stack, theta, *, mask=None):
+def batched_client_gradients(x_stack, y_stack, theta, *, mask=None,
+                             live_rows=None):
     """All-client unnormalized gradients in one kernel launch.
 
     x_stack: (n, l, q), y_stack: (n, l, c), theta: (q, c) -> (n, q, c).
     With the (n, l) per-row weights `mask` through ``linreg_grad_masked``;
-    without, every row weighs 1 (``linreg_grad_batched``).
+    without, every row weighs 1 (``linreg_grad_batched``).  `live_rows` =
+    (l_max, u) of `fused_client_parity_tensors` (masked only): the zero
+    padding past them is not read.
     """
     if mask is not None:
-        return ops.linreg_grad_masked(x_stack, theta, y_stack, mask)
+        return ops.linreg_grad_masked(x_stack, theta, y_stack, mask,
+                                      live_rows=live_rows)
+    if live_rows is not None:
+        raise ValueError("live_rows needs a mask: the zero padding past "
+                         "them is written with mask 0")
     return ops.linreg_grad_batched(x_stack, theta, y_stack)
 
 
@@ -54,7 +61,9 @@ def fused_client_parity_tensors(sub_x, sub_y, mask, parity_x, parity_y, *,
     concentration of eq. 31) is folded into the parity row's float32 mask
     entries, so the masked-gradient kernel yields the coded gradient on
     that row from the same launch as the n client gradients.  Zero-mask
-    padding contributes nothing.
+    padding contributes nothing.  Past l_max client rows and past u parity
+    rows x, y and mask are zero: the fused round passes live_rows =
+    (l_max, u) and the kernel skips them.
     """
     n, l_max, q = sub_x.shape
     c = sub_y.shape[-1]

@@ -116,10 +116,11 @@ def build_step(static: dict):
     fused_embed.
     `consts`: gx (rows, L, q), gy (rows, L, c), gmask (rows, L), ret_tail
     (rows - n,); coded adds t_star () and active (n,) and, when unfused,
-    par_x (u, q) / par_y (u, c); ideal adds t_ideal ().  With fused_embed
-    gx is the raw (n, L, d) tensor, and omega (d, q), delta (q,) and, on
-    the fused coded round, pphi (L, q) and live_rows (l_max, u), the rows
-    of gx and of pphi that are not zero padding, come along.
+    par_x (u, q) / par_y (u, c), and when fused live_rows (l_max, u), the
+    rows of the client rows and of the parity row that are not zero
+    padding; ideal adds t_ideal ().  With fused_embed gx is the raw
+    (n, L, d) tensor, and omega (d, q), delta (q,) and, on the fused coded
+    round, pphi (L, q) come along.
     ``carry`` is ``(theta, lr_scale)``; ``inp`` is ``(t_row, lr)``, the
     round's float32 delays (n,) and learning rate.  ``out`` is
     ``(t_round, n_ret, n_masked, skipped)``, 0-dim tensors.
@@ -172,7 +173,8 @@ def build_step(static: dict):
                 live_rows=consts.get("live_rows"))
         else:
             g = aggregation.batched_client_gradients(
-                consts["gx"], consts["gy"], theta, mask=consts["gmask"])
+                consts["gx"], consts["gy"], theta, mask=consts["gmask"],
+                live_rows=consts.get("live_rows"))
         g_sum, n_masked = guard_and_sum(g, ret, guard)
         if scheme == "coded" and not fused:
             g_par = aggregation.coded_gradient(consts["par_x"],

@@ -191,13 +191,13 @@ class CodedScheme(Scheme):
                 aggregation.fused_embed_client_parity_tensors(
                     exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask,
                     exp.parity.x, exp.parity.y, pnr_c=0.0)
-            # past l_max client rows and u parity rows the tensors are
-            # zero padding, which the kernel skips
-            exp._live_rows = (exp._sub_x_pad.shape[1], exp.parity.x.shape[0])
         else:
             gx, gy, gmask = aggregation.fused_client_parity_tensors(
                 exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask,
                 exp.parity.x, exp.parity.y, pnr_c=0.0)
+        # past l_max client rows and u parity rows the tensors are zero
+        # padding, which the kernel skips
+        exp._live_rows = (exp._sub_x_pad.shape[1], exp.parity.x.shape[0])
         return gx, gy, gmask, [1.0]   # the always-active parity pseudo-row
 
     def extra_consts(self, exp) -> dict:
@@ -207,9 +207,10 @@ class CodedScheme(Scheme):
             "active": torch.from_numpy(
                 (exp.loads > 0).astype(np.float32)).to(exp.device),
         }
-        if exp.fused_coded and exp.fused_embed:
-            consts["pphi"] = exp._pphi_const
+        if exp.fused_coded:
             consts["live_rows"] = exp._live_rows
+            if exp.fused_embed:
+                consts["pphi"] = exp._pphi_const
         if not exp.fused_coded:
             consts["par_x"] = exp.parity.x
             consts["par_y"] = exp.parity.y

@@ -36,8 +36,9 @@ SIGNATURES = {
     "parity_encode_batched_f32": ("parity_encode",
                                   (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
     "parity_encode_f32": ("parity_encode", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "linreg_grad_masked_f32": ("linreg_grad",
-                               (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # x, theta_t, y, mask, part, g, n, L, q, c, live_c, live_l, chain,
+    # stream
+    "linreg_grad_masked_f32": ("linreg_grad", (_P,) * 6 + (_I,) * 7 + (_P,)),
     # x, theta, y, p (partial residuals), part, g, m, q, c, splits, stream
     "linreg_grad_f32": ("linreg_grad", (_P,) * 6 + (_I,) * 4 + (_P,)),
     "rff_linreg_grad_masked_f32": ("rff_linreg_grad", _FUSED_ARGS),

@@ -39,6 +39,5 @@ extern "C" int rff_embed_f32(const float* x, const float* omega,
                              int q, int q_true, cudaStream_t stream) {
   const CosEpilogue epi{delta,
                         static_cast<float>(std::sqrt(2.0 / q_true))};
-  return tiled::launch_gemm(x, nullptr, omega, out, 1, m, q, d, 0, 0, 0, 0,
-                            epi, stream);
+  return tiled::launch_gemm(x, omega, out, m, q, d, epi, stream);
 }

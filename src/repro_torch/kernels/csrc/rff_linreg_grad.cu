@@ -78,10 +78,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_sm90.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
@@ -138,30 +141,6 @@ __device__ __forceinline__ float to_float(bf16 v) {
   return __bfloat162float(v);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; zero-fills the destination where !valid (no
-// byte of src is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ float phi_of(float acc, float delta, float scale) {
   return scale * cosf(acc + delta);
 }
@@ -175,12 +154,6 @@ __device__ __forceinline__ float phi_of(float acc, float delta, float scale) {
 // (cp.async); step kt waits for its own copy only, while the copies of the
 // next two steps are in flight (one commit group a step, empty past the
 // end).
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
                                                   const void* p) {
   asm volatile(
@@ -197,24 +170,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// v = big + small: big the TF32 value nearest v, small the TF32 value
-// nearest the remainder (3xTF32: big*big + big*small + small*big carries
-// v*w to about 2^-22 relative, float32's own rounding is 2^-24)
-__device__ __forceinline__ void split_tf32(unsigned v, unsigned& big,
-                                           unsigned& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(__uint_as_float(v)));
-  const float rest = __uint_as_float(v) - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-}
-
 // the cosine epilogue of either tile: accumulator (mi, ni) holds rows g
 // and g + 8 and columns 2 t4 and 2 t4 + 1 of its 16 x 8 tile
 template <class T>

@@ -14,9 +14,10 @@ over: the CUDA kernels mask their ragged edges themselves.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched the CUDA
 kernel (a ``linreg_grad_masked`` call is one launch of that kernel, though
-it runs as two CUDA grids; ``linreg_grad_batched`` is a launch of
-``linreg_grad_masked`` without a mask, ``rff_embed_batched`` one of
-``rff_embed``).  CPU calls are not counted.
+it runs as two CUDA grids, the second summing its row segments;
+``linreg_grad_batched`` is a launch of ``linreg_grad_masked`` without a
+mask, ``rff_embed_batched`` one of ``rff_embed``).  CPU calls are not
+counted.
 """
 from __future__ import annotations
 
@@ -45,6 +46,12 @@ GQA_MAX_HEAD_DIM = 256
 LG_COLS = 128
 LG_MIN_ROWS = 32
 LG_QB = 512
+# linreg_grad_masked (csrc/linreg_grad.cu): threads per block (a q part is
+# 4 * MK_THREADS * J columns, J = 1 or 2), rows per slab, and rows per slab
+# where 8-row slabs do not fit beside theta
+MK_THREADS = 256
+MK_ROWS = 8
+MK_ROWS_WIDE = 4
 # the fused kernel's layout (csrc/rff_linreg_grad.cu): columns of an
 # embedding tile, CTAs of a cluster, slab heights, the staging area, the
 # label columns per pass, and the shared memory of a block and of an SM
@@ -261,9 +268,46 @@ def linreg_grad(x, theta, y):
     return g
 
 
-def _masked_gradients(x, theta, y, mask):
-    """One ``linreg_grad_masked_f32`` launch; ``mask=None`` weighs every
-    row 1 without a tensor of ones."""
+def masked_parts(q: int) -> int:
+    """q parts of ``linreg_grad_masked``: one while q <= 2048 (J = 1 up to
+    1024 columns, J = 2 up to 2048), each a block of its own past that."""
+    j = 1 if q <= 4 * MK_THREADS else 2
+    return -(-q // (4 * MK_THREADS * j))
+
+
+def masked_slab_rows(q: int, c: int) -> int:
+    """Rows per slab of ``linreg_grad_masked`` (mk_rows in the source): 8,
+    or 4 with 2048-column parts (q > 1024) and more than 10 label columns
+    a pass (c rounded up to even, at most 16)."""
+    nc = min(c, 16) + min(c, 16) % 2
+    return MK_ROWS_WIDE if q > 4 * MK_THREADS and nc > 10 else MK_ROWS
+
+
+@functools.lru_cache(maxsize=256)
+def masked_plan(n: int, q: int, c: int, live: tuple, n_sm: int) -> tuple:
+    """(chain, blocks): the slabs of every row in row order (``live[0]``
+    live rows for each row b < n - 1, ``live[1]`` for row n - 1) cut into
+    chains of equal length, one block each per (q part, 16-wide c chunk),
+    as many as fill one wave of one block an SM."""
+    places = max(1, n_sm // (masked_parts(q) * -(-c // 16)))
+    rows = masked_slab_rows(q, c)
+    total = (n - 1) * -(-live[0] // rows) + -(-live[1] // rows)
+    chain = -(-total // places)
+    return chain, -(-total // chain)
+
+
+def _masked_live(name: str, L: int, live_rows) -> tuple:
+    live = (L, L) if live_rows is None else tuple(int(v) for v in live_rows)
+    if len(live) != 2 or not all(1 <= v <= L for v in live):
+        raise ValueError(f"{name}: live_rows must be two counts in [1, {L}],"
+                         f" got {live_rows}")
+    return live
+
+
+def _masked_gradients(x, theta, y, mask, live):
+    """One ``linreg_grad_masked_f32`` launch over the live rows (the kernel
+    and a combine of its row segments); ``mask=None`` weighs every row 1
+    without a tensor of ones."""
     name = "linreg_grad_masked"
     (n, L, q), c = x.shape, theta.shape[1]
     _check_shape(name, x, (n, L, q))
@@ -271,30 +315,51 @@ def _masked_gradients(x, theta, y, mask):
     _check_shape(name, y, (n, L, c))
     if mask is not None:
         _check_shape(name, mask, (n, L))
-    # the residual warps read theta along q: hand it over as (c, q)
+    # the kernel reads theta along q: hand it over as (c, q)
     theta_t = theta.t().contiguous()
-    r = torch.empty((n, L, c), dtype=torch.float32, device=x.device)
-    g = torch.empty((n, q, c), dtype=torch.float32, device=x.device)
+    chain, blocks = masked_plan(n, q, c, live,
+                                _sm_count(x.device.index or 0))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # a block's sum for each row its chain meets: at most blocks + n
+    part = torch.empty((blocks + n, q, c), **f32)
+    g = torch.empty((n, q, c), **f32)
     _launch(name, "linreg_grad_masked_f32", x.device, x.data_ptr(),
-            theta_t.data_ptr(), y.data_ptr(), _ptr(mask), r.data_ptr(),
-            g.data_ptr(), n, L, q, c)
+            theta_t.data_ptr(), y.data_ptr(), _ptr(mask), part.data_ptr(),
+            g.data_ptr(), n, L, q, c, *live, chain)
     return g
 
 
-def linreg_grad_masked(x, theta, y, mask):
+def linreg_grad_masked(x, theta, y, mask, *, live_rows=None):
     """X_b^T diag(mask_b) (X_b theta - Y_b):
-    (n, L, q), (q, c), (n, L, c), (n, L) -> (n, q, c)."""
-    if not _on_cuda("linreg_grad_masked", x, theta, y, mask):
-        return ref.linreg_grad_masked(x, theta, y, mask)
-    return _masked_gradients(x, theta, y, mask)
+    (n, L, q), (q, c), (n, L, c), (n, L) -> (n, q, c).
+
+    ``live_rows`` = (clients, last_row) is the number of leading rows that
+    may be non-zero: ``clients`` for each row b < n - 1, ``last_row`` for
+    row n - 1 (the fused coded round's parity pseudo-row), each in [1, L].
+    Default: every row.  The contract is the fused kernel's
+    (``rff_linreg_grad_masked``): past its count a row holds x = 0, y = 0
+    and mask = 0, as ``aggregation.fused_client_parity_tensors`` writes its
+    padding.  The kernel does not read those rows, and the result is the
+    same: a padding row's term x^T (mask (x theta - y)) is 0 * (finite) =
+    +0 for finite theta.  Where theta is not finite, row 0 of the same row
+    b (always live) is already NaN or infinite, so g_b is not finite either
+    way.  Rows with mask 0 inside the live range are computed, so a NaN
+    feature there propagates as in the reference.
+    """
+    name = "linreg_grad_masked"
+    live = _masked_live(name, x.shape[1], live_rows)
+    if not _on_cuda(name, x, theta, y, mask):
+        return ref.linreg_grad_masked(x, theta, y, mask, live_rows=live_rows)
+    return _masked_gradients(x, theta, y, mask, live)
 
 
 def linreg_grad_batched(x, theta, y):
     """X_b^T (X_b theta - Y_b): (n, L, q), (q, c), (n, L, c) -> (n, q, c);
-    on the card one ``linreg_grad_masked`` launch with no mask."""
+    on the card one ``linreg_grad_masked`` launch with no mask, every row
+    live."""
     if not _on_cuda("linreg_grad_batched", x, theta, y):
         return ref.linreg_grad_batched(x, theta, y)
-    return _masked_gradients(x, theta, y, None)
+    return _masked_gradients(x, theta, y, None, (x.shape[1],) * 2)
 
 
 def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,

@@ -40,14 +40,28 @@ def linreg_grad_batched(x, theta, y):
     return x.transpose(1, 2) @ (x @ theta - y)
 
 
-def linreg_grad_masked(x, theta, y, mask):
+def linreg_grad_masked(x, theta, y, mask, live_rows=None):
     """Per-client row-masked gradients (batched-engine form of eq. 7/10).
 
     x: (n, l, q), theta: (q, c), y: (n, l, c), mask: (n, l) -> (n, q, c)
       g_b = x_b^T diag(mask_b) (x_b @ theta - y_b)
     Rows with mask 0 contribute zero (for finite x, y); fractional entries
     scale a row's gradient (the fused coded round's 1/u factor).
+    ``live_rows`` = (clients, last_row) slices rows b < n - 1 to their first
+    ``clients`` rows and row n - 1 to its first ``last_row`` rows; where the
+    rows past them hold x = 0, y = 0 and mask = 0 the result is the same as
+    without it (``ops.linreg_grad_masked`` says why).
     """
+    if live_rows is not None:
+        n = x.shape[0]
+        lc, ll = live_rows
+        g_last = linreg_grad_masked(x[n - 1:, :ll], theta, y[n - 1:, :ll],
+                                    mask[n - 1:, :ll])
+        if n == 1:
+            return g_last
+        return torch.cat([linreg_grad_masked(x[:n - 1, :lc], theta,
+                                             y[:n - 1, :lc],
+                                             mask[:n - 1, :lc]), g_last])
     r = (x @ theta - y) * mask[:, :, None]
     return x.transpose(1, 2) @ r
 

@@ -21,6 +21,9 @@ The fused kernel's ``live_rows`` (the leading rows that may be non-zero)
 is held against the same function over every row, on inputs that are zero
 past the live counts, and against the Pallas kernel; its launch plan is
 checked to take every q that the Pallas kernel's VMEM check admits.
+``linreg_grad_masked``'s ``live_rows`` is held the same way, and its
+launch plan (equal chains of slabs over all rows, their segments numbered
+without collision) is checked in plain Python.
 
 The ``cuda``-marked tests compare each CUDA kernel with its plain version
 on the card, at shapes one below, at and one above each tile multiple of
@@ -123,6 +126,120 @@ def test_linreg_grad_masked_plain_matches_pallas(n, L, q, c):
     got = ops.linreg_grad_masked(*_t(x, theta, y, mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
+
+
+def _masked_zero_past(arrays, live_c, live_l):
+    """The masked-gradient inputs zero past the live counts (x, y, mask),
+    as ``aggregation.fused_client_parity_tensors`` pads them: rows b < n - 1
+    past live_c, row n - 1 past live_l."""
+    x, theta, y, mask = (a.copy() for a in arrays)
+    for rows, live in ((slice(None, -1), live_c), (slice(-1, None), live_l)):
+        x[rows, live:] = 0.0
+        y[rows, live:] = 0.0
+        mask[rows, live:] = 0.0
+    return x, theta, y, mask
+
+
+# live counts one below, at and one above the kernel's 4- and 8-row slabs,
+# 1 and every row; the last row's count 6x the clients', or less
+_MASKED_LIVE = [(1, 1), (3, 18), (4, 24), (5, 30), (7, 41), (8, 40),
+                (9, 4), (41, 41)]
+
+
+@pytest.mark.parametrize("live", _MASKED_LIVE,
+                         ids=[f"{a}-{b}" for a, b in _MASKED_LIVE])
+def test_linreg_grad_masked_live_rows_change_nothing(live):
+    """The plain version with live_rows equals the plain version without
+    them, and the Pallas kernel, on inputs zero past the live counts."""
+    arrays = _masked_zero_past(_grad_inputs(3, 41, 45, 10), *live)
+    args = _t(*arrays)
+    every = ops.linreg_grad_masked(*args)
+    got = ops.linreg_grad_masked(*args, live_rows=live)
+    want = ref_ops.linreg_grad_masked(*arrays, use_pallas=True,
+                                      interpret=True)
+    np.testing.assert_allclose(got.numpy(), every.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_linreg_grad_masked_live_rows_on_fused_coded_tensors():
+    """A small deployment's fused coded tensors (l_max client rows, u > l_max
+    parity rows with the 1/u mask): live_rows = (l_max, u) against every row
+    and against the Pallas kernel."""
+    from repro_torch.core import aggregation as t_agg
+    n, l_max, q, c, u = 4, 7, 24, 3, 19
+    rng = np.random.default_rng(8)
+    valid = (rng.uniform(size=(n, l_max)) < 0.7).astype(np.float32)
+    sub_x = _np((n, l_max, q), 9, 0.3) * valid[:, :, None]
+    sub_y = _np((n, l_max, c), 10) * valid[:, :, None]
+    gx, gy, gmask = t_agg.fused_client_parity_tensors(
+        *(torch.from_numpy(a) for a in (sub_x, sub_y, valid,
+                                        _np((u, q), 11, 0.3),
+                                        _np((u, c), 12))))
+    theta = torch.from_numpy(_np((q, c), 13, 0.3))
+    got = ops.linreg_grad_masked(gx, theta, gy, gmask, live_rows=(l_max, u))
+    every = ops.linreg_grad_masked(gx, theta, gy, gmask)
+    want = ref_ops.linreg_grad_masked(gx.numpy(), theta.numpy(), gy.numpy(),
+                                      gmask.numpy(), use_pallas=True,
+                                      interpret=True)
+    assert got.shape == (n + 1, q, c)
+    np.testing.assert_allclose(got.numpy(), every.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("live", [(0, 3), (3, 42), (3,), (1, 2, 3)])
+def test_linreg_grad_masked_refuses_bad_live_rows(live):
+    args = _t(*_grad_inputs(3, 41, 8, 2))
+    with pytest.raises(ValueError, match="live_rows"):
+        ops.linreg_grad_masked(*args, live_rows=live)
+
+
+@pytest.mark.parametrize("n,slabs_c,slabs_l,chain", [
+    (31, 50, 300, 14), (3, 1, 1, 2), (5, 7, 3, 7), (6, 4, 9, 3),
+    (1, 0, 300, 3), (40, 1, 2, 1), (9, 5, 5, 5)])
+def test_masked_segments_are_numbered_without_collision(n, slabs_c, slabs_l,
+                                                        chain):
+    """The kernel's segment (block k, row b) is partial k + b, and the
+    combine sums row b's segments k = first_b // chain .. last_b // chain:
+    every (block, row) pair that shares a slab gets its own index below
+    blocks + n, and the combine reads exactly those of its row."""
+    counts = [slabs_c] * (n - 1) + [slabs_l]
+    starts = np.cumsum([0] + counts)
+    total = starts[-1]
+    blocks = -(-total // chain)
+    pairs = set()
+    for k in range(blocks):
+        for g in range(k * chain, min(total, (k + 1) * chain)):
+            pairs.add((k, int(np.searchsorted(starts, g, side="right")) - 1))
+    index = [k + b for k, b in pairs]
+    assert len(set(index)) == len(index) and max(index) < blocks + n
+    for b in range(n):
+        k0 = starts[b] // chain
+        k1 = (starts[b] + counts[b] - 1) // chain
+        assert {k for k, bb in pairs if bb == b} == set(range(k0, k1 + 1))
+
+
+@pytest.mark.parametrize("n,q,c,live,plan", [
+    (31, 2000, 10, (400, 2400), (14, 129)),   # the coded round
+    (30, 2000, 10, (400, 400), (12, 125)),    # the naive round
+    (31, 2000, 10, (2400, 2400), (71, 131)),  # every row
+    (1, 2000, 10, (2400, 2400), (3, 100)),    # one row over the card
+    (31, 2000, 12, (400, 2400), (28, 129)),   # 4-row slabs (c > 10)
+    (2, 5000, 33, (10, 10), (1, 6)),          # 3 q parts x 3 c chunks
+    (40, 64, 3, (1, 9), (1, 41))])            # one-slab rows
+def test_masked_plan_fills_the_card(n, q, c, live, plan):
+    """The slabs of all rows (8 rows; 4 where c > 10 and q > 1024) cut
+    into equal chains, at most one block an SM of 132 for each (q part,
+    c chunk)."""
+    assert ops.masked_plan(n, q, c, live, 132) == plan
+    chain, blocks = plan
+    rows = ops.masked_slab_rows(q, c)
+    total = (n - 1) * -(-live[0] // rows) + -(-live[1] // rows)
+    assert (blocks - 1) * chain < total <= blocks * chain
+    assert blocks <= 132 // (ops.masked_parts(q) * -(-c // 16))
 
 
 @pytest.mark.parametrize("n,u,l,q", [(3, 13, 20, 24), (2, 65, 33, 129)])
@@ -528,6 +645,10 @@ def test_fused_layout_constants_match_the_source():
     assert "PHI_PAD = 4;" in src
     lg = (build.CSRC / "linreg_grad.cu").read_text()
     assert f"constexpr int XTR_THREADS = {ops.LG_COLS};" in lg
+    assert f"constexpr int MK_ROWS = {ops.MK_ROWS};" in lg
+    assert f"constexpr int MK_ROWS_WIDE = {ops.MK_ROWS_WIDE};" in lg
+    assert "return J == 2 && NC > 10 ? MK_ROWS_WIDE : MK_ROWS;" in lg
+    assert f"constexpr int MK_THREADS = {ops.MK_THREADS};" in lg
     assert f"constexpr int LG_QB = {ops.LG_QB};" in lg
 
 
@@ -552,8 +673,9 @@ def _max_rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
 
 
-# tile multiples: the GEMM tile is 64 x 64 over K steps of 16; the
-# masked-gradient kernel tiles q by 128, L by 64 and c by 16
+# tile multiples: the rff_embed GEMM tile is 64 x 64 over K steps of 16;
+# the masked-gradient kernel cuts L into 4-row slabs and c into chunks of
+# 16; the parity encode tile is 128 x 128 over K steps of 16
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,d,q", [(63, 15, 63), (64, 16, 64), (65, 17, 65),
                                    (129, 784, 127)])
@@ -572,6 +694,131 @@ def test_linreg_grad_masked_kernel_matches_plain(cuda, n, L, q, c):
     got = ops.linreg_grad_masked(*args)
     torch.cuda.synchronize()
     assert _max_rel_err(got, ref.linreg_grad_masked(*args)) < 1e-5
+
+
+# linreg_grad_masked: 8-row slabs (4-row where c > 10 and q > 1024: c =
+# 17), groups of them, q parts of 1024 (q <= 1024) or 2048 columns (q =
+# 2049: two parts), 16-wide c chunks (c = 17); live counts at the slab
+# edges, the last row's 6x the clients', as the coded round's
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 10, 17])
+@pytest.mark.parametrize("q", [129, 1024, 1025, 2000, 2049])
+@pytest.mark.parametrize("live", [(1, 6), (3, 18), (4, 24), (5, 30),
+                                  (7, 42), (8, 48), (9, 54), (21, 126),
+                                  (130, 130)],
+                         ids=lambda v: f"{v[0]}-{v[1]}")
+def test_linreg_grad_masked_kernel_live_rows(cuda, live, q, c):
+    """The kernel with live_rows against the plain version over every row,
+    on inputs zero past them; reruns give the same bits."""
+    arrays = _masked_zero_past(_grad_inputs(4, 130, q, c), *live)
+    args = _t(*arrays, device=cuda)
+    got = ops.linreg_grad_masked(*args, live_rows=live)
+    again = ops.linreg_grad_masked(*args, live_rows=live)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)      # no atomics: reruns give the bits
+    assert _max_rel_err(got, ref.linreg_grad_masked(*args)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_linreg_grad_masked_kernel_at_the_coded_round_shape(cuda):
+    """(31, 2400, 2000), c = 10, live rows (400, 2400): many groups a row
+    and the combine launch."""
+    arrays = _masked_zero_past(_grad_inputs(31, 2400, 2000, 10), 400, 2400)
+    args = _t(*arrays, device=cuda)
+    got = ops.linreg_grad_masked(*args, live_rows=(400, 2400))
+    again = ops.linreg_grad_masked(*args, live_rows=(400, 2400))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _max_rel_err(got, ref.linreg_grad_masked(*args)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [None, (21, 126)], ids=["every", "live"])
+def test_linreg_grad_masked_kernel_propagates_nan(cuda, live):
+    """A NaN feature in a masked row inside the live range poisons that
+    row's g_b; a NaN theta entry poisons that column of every g_b."""
+    x, theta, y, mask = _masked_zero_past(_grad_inputs(4, 130, 300, 10),
+                                          21, 126)
+    mask[1, 7] = 0.0
+    x[1, 7, 50] = np.nan
+    args = _t(x, theta, y, mask, device=cuda)
+    got = ops.linreg_grad_masked(*args, live_rows=live)
+    torch.cuda.synchronize()
+    want = ref.linreg_grad_masked(*args)
+    assert torch.isnan(got[1]).all() and torch.isnan(want[1]).all()
+    keep = [0, 2, 3]
+    assert _max_rel_err(got[keep], want[keep]) < 1e-5
+    args[0][1, 7, 50] = 0.0
+    args[1][100, 2] = float("nan")
+    got = ops.linreg_grad_masked(*args, live_rows=live)
+    torch.cuda.synchronize()
+    want = ref.linreg_grad_masked(*args)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[:, :, 2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,live", [(100, (17, 40)), (300, (1, 1)),
+                                    (150, (9, 130))])
+def test_linreg_grad_masked_kernel_chains_cross_rows(cuda, n, live):
+    """More slabs than the card has SMs: each block's chain of slabs meets
+    several rows, and the combine sums each row's segments."""
+    arrays = _masked_zero_past(_grad_inputs(n, 130, 200, 10), *live)
+    args = _t(*arrays, device=cuda)
+    assert ops.masked_plan(n, 200, 10, live,
+                           ops._sm_count(cuda.index or 0))[0] > 1
+    got = ops.linreg_grad_masked(*args, live_rows=live)
+    torch.cuda.synchronize()
+    assert _max_rel_err(got, ref.linreg_grad_masked(*args)) < 1e-5
+
+
+# parity_encode_batched: 128 x 128 tiles over K steps of 16 (two of 8) on
+# the tensor cores, the narrow path for q <= 16; K not a multiple of 8,
+# M and N at a tile edge +- 1, q not a multiple of 4 (4-byte copies), the
+# label width q = 10, and a K that crosses the 16-step flush
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,u,l,q", [
+    (2, 127, 15, 127), (2, 128, 16, 128), (3, 129, 17, 129),
+    (2, 255, 401, 257), (2, 130, 260, 130), (3, 200, 400, 10),
+    (2, 129, 37, 16), (2, 33, 9, 17), (1, 64, 5, 3)])
+def test_parity_encode_batched_kernel_edges(cuda, n, u, l, q):
+    args = _t(*_parity_inputs(n, u, l, q), device=cuda)
+    got = ops.parity_encode_batched(*args)
+    again = ops.parity_encode_batched(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _max_rel_err(got, ref.parity_encode_batched(*args)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [10, 130])
+def test_parity_encode_batched_kernel_propagates_nan(cuda, q):
+    """A NaN in one client's features or weights poisons that client's
+    parity set where the plain version's is NaN, on the tensor-core path
+    (q = 130) and on the narrow one (q = 10)."""
+    g, w, x = _parity_inputs(3, 70, 37, q)
+    x[1, 5, 7] = np.nan
+    w[2, 11] = np.nan
+    args = _t(g, w, x, device=cuda)
+    got = ops.parity_encode_batched(*args)
+    torch.cuda.synchronize()
+    want = ref.parity_encode_batched(*args)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[1, :, 7]).all() and torch.isnan(got[2]).all()
+    assert _max_rel_err(got[0], want[0]) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u,l,q", [(129, 37, 130), (200, 400, 10),
+                                   (2400, 400, 2000)])
+def test_parity_encode_equals_the_batched_encode(cuda, u, l, q):
+    """Each client's parity set is the same bits from the single-client
+    entry point as from the batched one: the sum order of an output does
+    not depend on n."""
+    g, w, x = _t(*_parity_inputs(3, u, l, q), device=cuda)
+    batched = ops.parity_encode_batched(g, w, x)
+    for j in range(3):
+        assert torch.equal(ops.parity_encode(g[j], w[j], x[j]), batched[j])
 
 
 @pytest.mark.cuda

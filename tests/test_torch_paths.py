@@ -21,8 +21,9 @@ on the fused_embed path the (Omega, delta) its ``Experiment`` draws from
 
 Also: ``encode_local`` + ``aggregate_parity`` with the same generators, the
 fused path against its two-pass control inside the port, the zero padding
-past the live rows (l_max client rows, u parity rows) that the fused coded
-round tells the kernel to skip, and the spec combinations that both
+past the live rows (l_max client rows, u parity rows) that the coded
+rounds (fused_embed and the batched fused tensor) tell their kernels to
+skip, and the spec combinations that both
 packages refuse.
 """
 import dataclasses
@@ -254,6 +255,53 @@ def test_fused_embed_round_skips_padding_and_matches_reference(scheme,
     t_res = t_exp.run(ROUNDS, eval_fn=_trace, eval_every=1)
     assert seen == [(l_max, u)] * ROUNDS
     _assert_same_run(t_exp, t_res, ref_exp, ref_res, eps_rtol=1e-5)
+
+
+@pytest.mark.parametrize("scheme", ["coded", "partial_coded"])
+def test_coded_round_passes_live_rows_and_matches_reference(scheme,
+                                                            monkeypatch):
+    """The batched coded round (fused_coded, embedded features) hands
+    linreg_grad_masked live_rows = (l_max, u) every round, and still takes
+    the reference's rounds and theta: host quantities bit for bit, theta
+    within the tolerance of tests/test_torch_engine.py."""
+    from repro_torch.kernels import ops
+    xs, ys = _embedded_data()
+    ref_exp = ref_api.build_experiment(_spec(ref_config, scheme, NE), xs, ys)
+    t_exp = _port_twin(ref_exp, _spec(t_config, scheme, NE), xs, ys)
+    consts = t_exp.build_consts()
+    l_max, u = int(t_exp.loads.max()), t_exp.u
+    assert consts["live_rows"] == (l_max, u)
+    assert consts["gmask"].shape[1] > min(l_max, u)   # there is padding
+    seen = []
+    kernel = ops.linreg_grad_masked
+
+    def spy(*args, **kw):
+        seen.append(kw.get("live_rows"))
+        return kernel(*args, **kw)
+    monkeypatch.setattr(ops, "linreg_grad_masked", spy)
+    ref_res = ref_exp.run(ROUNDS, eval_fn=_trace, eval_every=1)
+    t_res = t_exp.run(ROUNDS, eval_fn=_trace, eval_every=1)
+    assert seen == [(l_max, u)] * ROUNDS
+    _assert_same_run(t_exp, t_res, ref_exp, ref_res)
+
+
+def test_coded_round_tensors_are_zero_past_live_rows():
+    """The guarantee the batched coded round's row skip rests on: past
+    l_max the client rows of x, y and mask are zero, and past u so are the
+    parity row's."""
+    n, l_max, q, c, u = 3, 5, 6, 2, 9
+    rng = np.random.default_rng(6)
+    args = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            for shape in ((n, l_max, q), (n, l_max, c), (n, l_max),
+                          (u, q), (u, c))]
+    fx, fy, fmask = t_agg.fused_client_parity_tensors(*args, pnr_c=0.1)
+    assert fx.shape == (n + 1, u, q)
+    for t in (fx[:n, l_max:], fy[:n, l_max:], fmask[:n, l_max:]):
+        assert not t.any()
+    assert torch.equal(fx[n, :u], args[3])
+    with pytest.raises(ValueError, match="live_rows needs a mask"):
+        t_agg.batched_client_gradients(fx, fy, torch.zeros((q, c)),
+                                       live_rows=(l_max, u))
 
 
 def test_rff_draw_is_checked():
