@@ -66,7 +66,17 @@ Phases, each printed as one JSON object per line:
              for 3xTF32 in f32; bf16 tensor cores in bf16; the
              contractions at the FFMA peak).  linreg_grad is timed at the
              parity set and at one legacy client, each with its library
-             time and its device time (torch.profiler);
+             time and its device time (torch.profiler).  rff_embed is
+             checked at edges around its 128 x 128 tile and 16-step K stage
+             (and x off a 16-byte boundary), with a NaN feature and a rerun,
+             and timed by events and on the device beside addmm + cos, its
+             bound the product in 3xTF32 on the tensor cores.  gqa_decode is
+             checked at its 32-slot tile and split edges (gqa_plan on this
+             card), G = 1..16, hd_v != hd, head dims off the score mma and
+             off the 16-byte copies, NaN in masked slots, and reruns; timed
+             by events, on the device (device_ms, library_device_ms) and on
+             the host (host_ms: the wrapper's enqueue), beside SDPA with its
+             mask made once outside the timed calls;
  13. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -186,6 +196,19 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Mean host ms per call over `reps` calls after one warm-up: the time
+    the host takes to enqueue a call, the synchronize left out."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
 
 
 def bound(nbytes: float, flops: float, bf16_flops: float = 0.0,
@@ -881,9 +904,23 @@ def gqa_checks(torch, dev, state) -> dict:
                      else a for a in main)
     empty = torch.arange(300, dtype=torch.int32, device=dev)
     empty[torch.rand(300, generator=gen, device=dev) < 0.2] = -1
+    # split edges at the serving batch and KV heads: T one below, at and
+    # one above 2 tiles times the plan's splits on this card
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split_t = 2 * ops.GQA_TILE * (ops.GQA_BLOCKS_PER_SM * n_sm // (B * K))
+    tile = ops.GQA_TILE
     edges = []
     for dtype in (torch.float32, bf16):
         edges += [
+            case(2, 32, 8, 128, 128, tile - 1, tile - 2, dtype=dtype),
+            case(2, 32, 8, 128, 128, tile, tile - 1, dtype=dtype),
+            case(2, 32, 8, 128, 128, tile + 1, tile, dtype=dtype),
+            case(B, H, K, hd, hd, split_t - 1, split_t - 2, dtype=dtype),
+            case(B, H, K, hd, hd, split_t, split_t - 1, dtype=dtype),
+            case(B, H, K, hd, hd, split_t + 1, split_t, dtype=dtype),
+            case(1, 16, 1, 128, 128, 129, 128, dtype=dtype),  # G = 16
+            case(2, 12, 2, 24, 24, 65, 64, dtype=dtype),    # hd % 16 = 8
+            case(1, 4, 2, 20, 15, 70, 69, dtype=dtype),     # no 16-byte rows
             case(2, 32, 8, 128, 128, 127, 126, dtype=dtype),
             case(2, 32, 8, 128, 128, 128, 127, dtype=dtype),
             case(2, 32, 8, 128, 128, 129, 128, dtype=dtype),
@@ -904,13 +941,18 @@ def gqa_checks(torch, dev, state) -> dict:
     def plain(*a):
         return ref.gqa_decode(*a)
 
-    def lib(q, k, v, k_pos, q_pos, window):
+    def lib_mask(q, k, v, k_pos, q_pos, window):
+        """SDPA's boolean mask of the valid slots, made once outside the
+        timed calls."""
         valid = (k_pos >= 0) & (k_pos <= q_pos)
         if window > 0:
             valid &= k_pos > q_pos - window
+        return valid[None, None, None, :]
+
+    def lib(q, k, v, mask):
         return F.scaled_dot_product_attention(
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=valid[None, None, None, :], enable_gqa=True)[:, :, 0]
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
 
     def tol_of(dtype):
         return REL_TOL if dtype == torch.float32 else BF16_REL_TOL
@@ -928,14 +970,35 @@ def gqa_checks(torch, dev, state) -> dict:
                        "q_pos": args[4], "window": args[5],
                        "dtype": str(args[0].dtype).replace("torch.", ""),
                        "max_abs_err": err, "tol": tol})
-    lib_err, _ = max_err(torch, lib(*main).float(), plain(*main).float(),
-                         BF16_REL_TOL)
+    # a NaN in a masked slot's V row poisons its column of the KV head's
+    # outputs (0 * NaN, as in the plain version); one in a masked slot's K
+    # row does not (its score is -1e30 whatever it holds)
+    nq, nk, nv, npos, _, _ = case(2, 32, 8, 128, 128, 300, 299, dtype=bf16)
+    npos[[40, 200]] = -1
+    nv[0, 40, 1, 3] = float("nan")
+    nk[1, 200, 0, 5] = float("nan")
+    got = kern(nq, nk, nv, npos, 299, 0)
+    want = plain(nq, nk, nv, npos, 299, 0)
+    nan_v = bool(torch.equal(torch.isnan(got), torch.isnan(want))
+                 and torch.isnan(got[0, 4:8, 3]).all()
+                 and not torch.isnan(got[1]).any())
+    check(nan_v, "gqa_decode: NaN in masked slots did not propagate as in "
+          "the plain version")
+    max_err(torch, got[1].float(), want[1].float(), BF16_REL_TOL)
+    main_mask, f32_mask = lib_mask(*main), lib_mask(*main_f32)
+    lib_err, _ = max_err(torch, lib(*main[:3], main_mask).float(),
+                         plain(*main).float(), BF16_REL_TOL)
     reps = 50
     kernel_ms = time_ms(torch, lambda: kern(*main), reps)
     plain_ms = time_ms(torch, lambda: plain(*main), reps)
-    library_ms = time_ms(torch, lambda: lib(*main), reps)
+    library_ms = time_ms(torch, lambda: lib(*main[:3], main_mask), reps)
     f32_ms = time_ms(torch, lambda: kern(*main_f32), reps)
-    f32_lib_ms = time_ms(torch, lambda: lib(*main_f32), reps)
+    f32_lib_ms = time_ms(torch, lambda: lib(*main_f32[:3], f32_mask), reps)
+    kernel_device_ms = device_ms(torch, lambda: kern(*main), 20)
+    library_device_ms = device_ms(
+        torch, lambda: lib(*main[:3], main_mask), 20)
+    kernel_host_ms = host_ms(torch, lambda: kern(*main), 20)
+    library_host_ms = host_ms(torch, lambda: lib(*main[:3], main_mask), 20)
     q, k, v, k_pos, q_pos, _ = main
     # K rows of valid slots and every V row, q, k_pos and out, once each
     n_valid = int(((k_pos >= 0) & (k_pos <= q_pos)).sum())
@@ -954,6 +1017,12 @@ def gqa_checks(torch, dev, state) -> dict:
     n_layers = cfg.n_layers
     decode_ms = state["serve"]["decode_ms_per_step"]
     emit({"phase": "kernel", **row, "kernel_ms": kernel_ms,
+          "device_ms": kernel_device_ms,
+          "library_device_ms": library_device_ms,
+          "device_bound_share": bound_ms / kernel_device_ms,
+          "host_ms": kernel_host_ms, "library_host_ms": library_host_ms,
+          "plan": list(ops.gqa_plan(B, K, T, n_sm)),
+          "nan_masked_v_row": nan_v,
           "f32_ms": f32_ms, "f32_library_ms": f32_lib_ms,
           "serve_share_from_events": n_layers * kernel_ms / decode_ms,
           "serve_share_from_profiler":
@@ -961,7 +1030,8 @@ def gqa_checks(torch, dev, state) -> dict:
           "achieved_bytes_per_s": nbytes / (kernel_ms * 1e-3),
           "bound_share": bound_ms / kernel_ms, "checks": checks,
           "library": "torch.nn.functional.scaled_dot_product_attention("
-          "enable_gqa=True) with the same mask", "library_max_abs_err":
+          "enable_gqa=True) with the same mask, made once outside the timed "
+          "calls", "library_max_abs_err":
           lib_err, "tol_reason": f"|kernel - plain| <= {REL_TOL} * max(1, "
           "max|plain|) in float32 (sums in another order); "
           f"{BF16_REL_TOL} in bfloat16 (both round the same float32 value "
@@ -991,12 +1061,45 @@ def kernel_checks(torch, dev, state) -> list:
     # (name, main-path inputs, edge inputs, library call, bytes, flops)
     rff_main = (state["x_tr"], state["omega"], state["delta"])
     m, d = rff_main[0].shape
+    # one below, at and one above the 128 x 128 tile and its 16-step K
+    # stage (d = 15 and 17: 4-byte copies); x off a 16-byte boundary
+    tm, tn, tk = ops.TC_TILE_M, ops.TC_TILE_N, ops.TC_TILE_K
     rff_edges = [(unif(mm, dd), randn(dd, qq, scale=0.2),
                   unif(qq, hi=2 * math.pi))
-                 for mm, dd, qq in ((63, 15, 63), (64, 16, 64), (65, 17, 65))]
+                 for mm, dd, qq in ((63, 15, 63), (64, 16, 64), (65, 17, 65),
+                                    (tm - 1, tk - 1, tn - 1), (tm, tk, tn),
+                                    (tm + 1, tk + 1, tn + 1),
+                                    (2 * tm + 1, d, 2 * tn - 1))]
+    x_off = torch.empty(130 * 16 + 1, device=dev)[1:].view(130, 16)
+    x_off.copy_(unif(130, 16))
+    rff_edges.append((x_off, randn(16, 129, scale=0.2),
+                      unif(129, hi=2 * math.pi)))
 
     def rff_lib(x, om, de):
         return torch.addmm(de, x, om).cos_().mul_(math.sqrt(2.0 / om.shape[1]))
+
+    def rff_extra():
+        """Reruns give the same bits; a NaN feature poisons its row as in
+        the plain version; device times of kernel and library."""
+        a, b = ops.rff_embed(*rff_main, q_true=q_true), \
+            ops.rff_embed(*rff_main, q_true=q_true)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), "rff_embed: two launches on the same inputs "
+              "gave other bits")
+        x = rff_main[0][:300].clone()
+        x[7, d // 2] = float("nan")
+        got = ops.rff_embed(x, *rff_main[1:], q_true=q_true)
+        want = ref.rff_embed(x, *rff_main[1:], q_true=q_true)
+        nan_row = bool(torch.equal(torch.isnan(got), torch.isnan(want))
+                       and torch.isnan(got[7]).all())
+        check(nan_row, "rff_embed: a NaN feature did not poison its row as "
+              "in the plain version")
+        max_err(torch, got[:7], want[:7])
+        return {"rerun_identical": True, "nan_row": nan_row,
+                "device_ms": device_ms(torch, lambda: ops.rff_embed(
+                    *rff_main, q_true=q_true), 20),
+                "library_device_ms": device_ms(
+                    torch, lambda: rff_lib(*rff_main), 20)}
 
     par_main = (g_stack, exp.w_stack, exp.x)
     par_y = (g_stack, exp.w_stack, exp.y)
@@ -1365,11 +1468,12 @@ def kernel_checks(torch, dev, state) -> list:
     #  called at the round's live rows and held against their plain versions
     #  over every row (lin_check, fus_check)
     specs = [
+        # the product in 3xTF32 on the tensor cores, as par_cost
         ("rff_embed", lambda *a: ops.rff_embed(*a, q_true=q_true),
          lambda *a: ref.rff_embed(*a, q_true=q_true), None, rff_lib,
          rff_main, rff_edges,
-         (4 * (m * d + d * q_true + q_true + m * q_true),
-          2 * m * d * q_true), 10, REL_TOL, None),
+         (4 * (m * d + d * q_true + q_true + m * q_true), 0, 0,
+          2 * m * d * q_true), 10, REL_TOL, rff_extra),
         ("parity_encode_batched", ops.parity_encode_batched,
          ref.parity_encode_batched, None, par_lib, par_main, par_edges,
          par_cost(*par_main), 5, REL_TOL, par_extra),

@@ -29,7 +29,7 @@ _I = ctypes.c_int
 # c, q_true, live_raw, live_par, slab_rows, cluster, cols_per_cta,
 # groups_raw, groups_par; stream
 _FUSED_ARGS = (_P,) * 9 + (_I,) * 14 + (_P,)
-_GQA_ARGS = (_P,) * 8 + (_I,) * 8 + (_P,)
+_GQA_ARGS = (_P,) * 8 + (_I,) * 9 + (_P,)
 # C signature of each entry point: symbol -> (library, argtypes)
 SIGNATURES = {
     "rff_embed_f32": ("rff_embed", (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
@@ -46,7 +46,7 @@ SIGNATURES = {
     # bf16, slab_rows, cluster, cols_per_cta -> clusters at once
     "rff_linreg_grad_max_clusters": ("rff_linreg_grad", (_I,) * 4),
     # q, k, v, k_pos, out, part_m, part_l, part_acc, B, T, H, K, hd, hd_v,
-    # q_pos, window, stream
+    # q_pos, window, split_tiles, stream
     "gqa_decode_f32": ("gqa_decode", _GQA_ARGS),
     "gqa_decode_bf16": ("gqa_decode", _GQA_ARGS),
 }

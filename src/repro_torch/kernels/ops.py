@@ -36,10 +36,18 @@ _FUSED_SYMBOLS = {torch.float32: "rff_linreg_grad_masked_f32",
                   torch.bfloat16: "rff_linreg_grad_masked_bf16"}
 _GQA_SYMBOLS = {torch.float32: "gqa_decode_f32",
                 torch.bfloat16: "gqa_decode_bf16"}
-# gqa_decode's T-chunk (kChunk in csrc/gqa_decode.cu) and the widths it takes
-GQA_CHUNK = 128
+# the float32 tensor-core tile of rff_embed and parity_encode(_batched)
+# (csrc/tc_gemm_f32.cuh): output rows and columns of a block, K a stage
+TC_TILE_M = 128
+TC_TILE_N = 128
+TC_TILE_K = 16
+# gqa_decode (csrc/gqa_decode.cu): cache slots a tile (kTile), the widths
+# it takes, and the blocks an SM holds at once in bf16 at hd = 128 (its
+# 61.1 KB of shared memory), one wave of which its plan fills
+GQA_TILE = 32
 GQA_MAX_GROUP = 16
 GQA_MAX_HEAD_DIM = 256
+GQA_BLOCKS_PER_SM = 3
 
 # linreg_grad (csrc/linreg_grad.cu): q columns per block of the X^T r pass,
 # the fewest rows one L split walks, and q columns per partial residual
@@ -434,6 +442,18 @@ def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
     return g
 
 
+def gqa_plan(B: int, K: int, T: int, n_sm: int) -> tuple[int, int]:
+    """(n_split, split_tiles) of ``gqa_decode``: the cache's GQA_TILE-slot
+    tiles cut into n_split runs of split_tiles (the last may be shorter),
+    one block each per (b, KV head), as many as one wave of
+    GQA_BLOCKS_PER_SM blocks an SM holds over the B * K pairs (at least
+    one)."""
+    tiles = -(-T // GQA_TILE)
+    want = max(1, GQA_BLOCKS_PER_SM * n_sm // (B * K))
+    per = -(-tiles // min(tiles, want))
+    return -(-tiles // per), per
+
+
 def gqa_decode(q, k, v, k_pos, q_pos: int, window: int = 0):
     """One-token GQA attention over a KV cache:
     q (B, H, hd), k (B, T, K, hd), v (B, T, K, hd_v), k_pos (T,) int32 slot
@@ -441,8 +461,8 @@ def gqa_decode(q, k, v, k_pos, q_pos: int, window: int = 0):
 
     Valid slots have 0 <= k_pos <= q_pos and, with window > 0,
     k_pos > q_pos - window.  q, k and v are all float32 or all bfloat16;
-    on the card one launch (a split pass and a combine pass over
-    ceil(T / 128) T-chunks, partials in ``torch.empty`` scratch)."""
+    on the card one launch (a split pass over the runs of ``gqa_plan`` and
+    a combine pass, partials in ``torch.empty`` scratch)."""
     name = "gqa_decode"
     q_pos, window = int(q_pos), int(window)
     if not _on_cuda(name, q, k, v, k_pos, dtype=None):
@@ -466,7 +486,7 @@ def gqa_decode(q, k, v, k_pos, q_pos: int, window: int = 0):
                          f"query heads per KV head and head dims up to "
                          f"{GQA_MAX_HEAD_DIM}, got G = {H // K}, hd = {hd}, "
                          f"hd_v = {hd_v}")
-    n_split = -(-T // GQA_CHUNK)
+    n_split, split_tiles = gqa_plan(B, K, T, _sm_count(q.device.index or 0))
     f32 = dict(dtype=torch.float32, device=q.device)
     part_m = torch.empty((B, K, n_split, H // K), **f32)
     part_l = torch.empty((B, K, n_split, H // K), **f32)
@@ -475,5 +495,5 @@ def gqa_decode(q, k, v, k_pos, q_pos: int, window: int = 0):
     _launch(name, symbol, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_pos.data_ptr(), out.data_ptr(), part_m.data_ptr(),
             part_l.data_ptr(), part_acc.data_ptr(), B, T, H, K, hd, hd_v,
-            q_pos, window)
+            q_pos, window, split_tiles)
     return out

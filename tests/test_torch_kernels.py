@@ -23,7 +23,8 @@ past the live counts, and against the Pallas kernel; its launch plan is
 checked to take every q that the Pallas kernel's VMEM check admits.
 ``linreg_grad_masked``'s ``live_rows`` is held the same way, and its
 launch plan (equal chains of slabs over all rows, their segments numbered
-without collision) is checked in plain Python.
+without collision) is checked in plain Python, as is ``gqa_decode``'s
+(every 32-slot tile of the cache in one split).
 
 The ``cuda``-marked tests compare each CUDA kernel with its plain version
 on the card, at shapes one below, at and one above each tile multiple of
@@ -564,6 +565,37 @@ def test_gqa_decode_plain_matches_pallas(name, B, H, K, hd, hdv, T, window,
                                atol=ATOL)
 
 
+# (B, K, T, SMs) -> (n_split, split_tiles): the serving shape, T one
+# below, at and one above the 32-slot tile, a split length one below, at and
+# one above a multiple of 2 tiles, the rolling cache of serve_check, one
+# (b, KV head) pair on a small card, and one slot
+_GQA_PLANS = [
+    ((8, 8, 4160, 132), (6, 22)),
+    ((2, 8, 31, 132), (1, 1)), ((2, 8, 32, 132), (1, 1)),
+    ((2, 8, 33, 132), (2, 1)),
+    ((8, 8, 383, 132), (6, 2)), ((8, 8, 384, 132), (6, 2)),
+    ((8, 8, 385, 132), (5, 3)),
+    ((8, 8, 1024, 132), (6, 6)),
+    ((1, 1, 4160, 16), (44, 3)),
+    ((64, 8, 4160, 132), (1, 130)),
+    ((1, 1, 1, 132), (1, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,plan", _GQA_PLANS,
+                         ids=["x".join(map(str, s)) for s, _ in _GQA_PLANS])
+def test_gqa_plan_covers_every_tile_once(shape, plan):
+    """The cache's 32-slot tiles cut into runs of equal length, one wave of
+    three blocks an SM over the (b, KV head) pairs (one run each where the
+    pairs alone fill it); every tile in one run."""
+    B, K, T, n_sm = shape
+    assert ops.gqa_plan(B, K, T, n_sm) == plan
+    n_split, per = plan
+    tiles = -(-T // ops.GQA_TILE)
+    assert (n_split - 1) * per < tiles <= n_split * per
+    assert B * K * n_split <= max(B * K, ops.GQA_BLOCKS_PER_SM * n_sm)
+
+
 def test_cpu_calls_take_the_plain_path_and_count_nothing():
     ops.reset_launch_counts()
     x, theta, y, mask = _t(*_grad_inputs(2, 5, 6, 2))
@@ -652,6 +684,25 @@ def test_fused_layout_constants_match_the_source():
     assert f"constexpr int LG_QB = {ops.LG_QB};" in lg
 
 
+def test_tile_and_gqa_constants_match_the_sources():
+    """ops' copies of the shared float32 tensor-core tile
+    (tc_gemm_f32.cuh, the edges the tests take) and of gqa_decode.cu's
+    tile and widths (the plan and the wrapper's checks) match the
+    sources; no kernel includes the removed FFMA tile."""
+    tc = (build.CSRC / "tc_gemm_f32.cuh").read_text()
+    for c_name, value in (("BM", ops.TC_TILE_M), ("BN", ops.TC_TILE_N),
+                          ("BK", ops.TC_TILE_K)):
+        assert f"constexpr int {c_name} = {value};" in tc, c_name
+    gqa = (build.CSRC / "gqa_decode.cu").read_text()
+    for c_name, value in (("kTile", ops.GQA_TILE),
+                          ("kMaxG", ops.GQA_MAX_GROUP),
+                          ("kMaxHd", ops.GQA_MAX_HEAD_DIM)):
+        assert f"constexpr int {c_name} = {value};" in gqa, c_name
+    for name in ("rff_embed.cu", "parity_encode.cu"):
+        assert '#include "tc_gemm_f32.cuh"' in (build.CSRC / name).read_text()
+    assert not (build.CSRC / "tiled_gemm.cuh").exists()
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(build.os.path, "exists", lambda p: False)
@@ -673,17 +724,58 @@ def _max_rel_err(got, want):
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
 
 
-# tile multiples: the rff_embed GEMM tile is 64 x 64 over K steps of 16;
+# tile multiples: rff_embed and the parity encode run the 128 x 128 tile
+# of tc_gemm_f32.cuh over K steps of 16 (d = 15 and 17: 4-byte copies);
 # the masked-gradient kernel cuts L into 4-row slabs and c into chunks of
-# 16; the parity encode tile is 128 x 128 over K steps of 16
+# 16
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,d,q", [(63, 15, 63), (64, 16, 64), (65, 17, 65),
-                                   (129, 784, 127)])
+                                   (129, 784, 127), (127, 15, 127),
+                                   (128, 16, 128), (129, 17, 129),
+                                   (257, 255, 256), (300, 784, 2000)])
 def test_rff_embed_kernel_matches_plain(cuda, m, d, q):
     args = _t(*_rff_inputs(m, d, q), device=cuda)
     got = ops.rff_embed(*args)
+    again = ops.rff_embed(*args)
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     assert _max_rel_err(got, ref.rff_embed(*args)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 17, 784])
+def test_rff_embed_kernel_propagates_nan(cuda, d):
+    """A NaN feature poisons its row of the embedding, on the 16-byte copy
+    path (d = 16, 784) and the 4-byte one (d = 17); NaN in Omega and delta
+    poison their column."""
+    x, omega, delta = _rff_inputs(140, d, 130)
+    x[5, d // 2] = np.nan
+    omega[d - 1, 7] = np.nan
+    delta[100] = np.nan
+    args = _t(x, omega, delta, device=cuda)
+    got = ops.rff_embed(*args)
+    torch.cuda.synchronize()
+    want = ref.rff_embed(*args)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[5]).all() and torch.isnan(got[:, 7]).all()
+    keep = torch.ones(130, dtype=torch.bool, device=cuda)
+    keep[[7, 100]] = False
+    assert _max_rel_err(got[:5][:, keep], want[:5][:, keep]) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 784])
+def test_rff_embed_kernel_takes_an_unaligned_base(cuda, d):
+    """x at a 4-byte offset from a 16-byte boundary takes the 4-byte copies
+    though d is a multiple of 4."""
+    x, omega, delta = _t(*_rff_inputs(130, d, 129), device=cuda)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    x_off = buf[1:].view(x.shape)
+    x_off.copy_(x)
+    assert x_off.data_ptr() % 16 != 0 and x_off.is_contiguous()
+    got = ops.rff_embed(x_off, omega, delta)
+    torch.cuda.synchronize()
+    assert _max_rel_err(got, ref.rff_embed(x, omega, delta)) < 1e-5
 
 
 @pytest.mark.cuda
@@ -982,13 +1074,21 @@ def test_kernel_launches_are_counted(cuda):
                             "parity_encode": 1, "gqa_decode": 1}
 
 
-# gqa_decode splits T into 128-slot chunks: T one below, at and one above,
-# a window, empty slots, a rolling cache, G = 1 and G = 8, hd_v != hd, and
-# the head dims at the kernel's limit
+# gqa_decode cuts T into 32-slot tiles and the tiles into runs
+# (gqa_plan): T one below, at and one above a tile and a 128-slot multiple,
+# a window, empty slots, a rolling cache, G = 1, 4, 8 and 16, hd_v != hd,
+# the head dims at the kernel's limit, and head dims off the bf16 score
+# mma (hd % 16 != 0) and off the 16-byte copies (hd or hd_v not a multiple
+# of 16 bytes)
 _GQA_EDGES = [
+    (2, 8, 2, 64, 64, 31, 0, None, 30),
+    (2, 8, 2, 64, 64, 32, 0, None, 31),
+    (2, 8, 2, 64, 64, 33, 0, None, 32),
     (2, 8, 2, 64, 64, 127, 0, None, 126),
     (2, 8, 2, 64, 64, 128, 0, None, 127),
     (2, 8, 2, 64, 64, 129, 0, None, 128),
+    (2, 12, 2, 24, 24, 65, 0, None, 64),                # hd % 16 = 8
+    (1, 4, 2, 20, 15, 70, 0, None, 69),                 # 40- and 30-byte rows
     (1, 16, 4, 32, 32, 300, 48, None, 299),
     (2, 4, 4, 128, 128, 257, 0, None, 256),             # G = 1
     (2, 32, 4, 128, 128, 385, 0, None, 384),            # G = 8 (yi-6b)
@@ -1017,6 +1117,71 @@ def test_gqa_decode_kernel_matches_plain(cuda, B, H, K, hd, hdv, T, window,
     # float32: sums in another order; bfloat16: both sides round the same
     # float32 result to bf16, at most one ulp (2^-8 relative) apart
     tol = 1e-5 if dtype == "float32" else 2 ** -7
+    assert _max_rel_err(got.float(), want.float()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_gqa_decode_kernel_at_split_edges(cuda, delta, dtype):
+    """T one below, at and one above 2 tiles times the plan's splits at the
+    serving batch and KV heads (B = K = 8), on this card's SM count."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = ops.GQA_BLOCKS_PER_SM * n_sm // 64
+    T = 2 * want * ops.GQA_TILE + delta
+    assert ops.gqa_plan(8, 8, T, n_sm)[1] == (2 if delta <= 0 else 3)
+    q, k, v, kp = _t(*_gqa_inputs(8, 32, 8, 128, 128, T), device=cuda)
+    if dtype == "bfloat16":
+        q, k, v = (a.to(torch.bfloat16) for a in (q, k, v))
+    got = ops.gqa_decode(q, k, v, kp, T - 1)
+    again = ops.gqa_decode(q, k, v, kp, T - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    want_out = ref.gqa_decode(q, k, v, kp, T - 1)
+    assert _max_rel_err(got.float(), want_out.float()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gqa_decode_kernel_nan_in_masked_slots(cuda, dtype):
+    """A NaN in a masked slot's V row poisons its KV head's outputs (0 *
+    NaN, as in the plain version); a NaN in a masked slot's K row does not
+    (its score is -1e30 whatever it holds)."""
+    q, k, v, kp = _gqa_inputs(2, 8, 2, 128, 128, 300, empty=0.0)
+    kp[40] = -1
+    kp[200] = -1
+    v[0, 40, 1, 3] = np.nan
+    k[1, 200, 0, 5] = np.nan
+    q, k, v, kp = _t(q, k, v, kp, device=cuda)
+    if dtype == "bfloat16":
+        q, k, v = (a.to(torch.bfloat16) for a in (q, k, v))
+    got = ops.gqa_decode(q, k, v, kp, 299)
+    torch.cuda.synchronize()
+    want = ref.gqa_decode(q, k, v, kp, 299)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[0, 4:, 3]).all() and not torch.isnan(got[1]).any()
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    assert _max_rel_err(got[1].float(), want[1].float()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gqa_decode_kernel_takes_an_unaligned_cache(cuda, dtype):
+    """K and V one element past a 16-byte boundary take the element copies
+    (and, in bf16, the FFMA scores) through the same ring."""
+    q, k, v, kp = _t(*_gqa_inputs(2, 8, 2, 64, 64, 100), device=cuda)
+    dt = torch.float32 if dtype == "float32" else torch.bfloat16
+    q, k, v = (a.to(dt) for a in (q, k, v))
+    k_off, v_off = (torch.empty(a.numel() + 1, dtype=dt, device=cuda)[1:]
+                    .view(a.shape) for a in (k, v))
+    k_off.copy_(k)
+    v_off.copy_(v)
+    assert k_off.data_ptr() % 16 != 0 and v_off.data_ptr() % 16 != 0
+    got = ops.gqa_decode(q, k_off, v_off, kp, 99)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2 ** -7
+    want = ref.gqa_decode(q, k, v, kp, 99)
     assert _max_rel_err(got.float(), want.float()) < tol
 
 
