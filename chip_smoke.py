@@ -30,7 +30,25 @@ Phases, each printed as one JSON object per line:
   8. encode_local: the per-client parity_encode loop over the coded
              deployment's 30 clients, then aggregate_parity, against the
              batched encode of the main path, bit for bit;
-  9. serve:  the model zoo's serving path, qwen3-4b at full width (36
+  9. resume: the main path's coded deployment with checkpoint_every = 5:
+             one block, a checkpoint in the git-ignored build/, the kill,
+             then a freshly built experiment restores it (digest verified)
+             and finishes; theta, wall clock and returned counts bit-identical
+             to the uninterrupted blocked run, 20 linreg_grad_masked launches
+             over the killed and the resumed run; save and restore times;
+ 10. multi:  run_multi(20, 8) on the main path's coded and naive
+             deployments: the (8, 20) wall clock and returned counts equal
+             to the delay draw replayed on the host, bit for bit; 8 x 20
+             launches; run_multi(20, 1) equal to run(20) from the same
+             generator position; warm ms per realization-round;
+ 11. alloc:  MNIST-RFF at n = 100 clients (l = 120): the vectorized
+             allocator in float64 on the card against the scalar one on the
+             host (both timed; t* within 2e-6 (1 + t*), loads within 1e-4,
+             node for node within 1e-6 (1 + l)), then a coded deployment
+             whose auto backend picks the vectorized solver, run 20 rounds;
+ 12. quickstart: repro_torch.launch.quickstart.main() on the card: five
+             schemes, kill/resume bit-identical, bands over 8 realizations;
+ 13. serve:  the model zoo's serving path, qwen3-4b at full width (36
              layers, d_model 2560, bf16) from seeded random weights: 8
              requests of 4096-token prompts (make_batch), 64 greedy tokens
              each (max_seq 4160, window 0) through
@@ -39,13 +57,13 @@ Phases, each printed as one JSON object per line:
              its byte bound, tokens/s; then torch.profiler over 4 warm
              decode steps after a second prefill: device busy and idle
              share of a step, the top kernels, and gqa_decode's share;
- 10. serve_check: full width at 4 layers, float32: the last decode step's
+ 14. serve_check: full width at 4 layers, float32: the last decode step's
              logits against the last-position logits of a prefill over
              prompt + generated tokens, at window 0 and at window 1024 over
              a 4096-token prompt (a rolling cache);
- 11. serve_cpu: the qwen3-4b smoke variant served on the card and on the
+ 15. serve_cpu: the qwen3-4b smoke variant served on the card and on the
              CPU (plain versions): identical tokens, logits within tolerance;
- 12. kernel: each kernel against its plain PyTorch version on the card, at
+ 16. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
              tile multiple; times with CUDA events.  linreg_grad_masked at
@@ -77,7 +95,7 @@ Phases, each printed as one JSON object per line:
              by events, on the device (device_ms, library_device_ms) and on
              the host (host_ms: the wrapper's enqueue), beside SDPA with its
              mask made once outside the timed calls;
- 13. the kernels table, then the final line
+ 17. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -104,6 +122,11 @@ SRC = Path(__file__).resolve().parent / "src"
 SIZE = dict(n_clients=30, m_train=12000, m_test=2000, d=784, q=2000)
 ROUNDS = 20
 CPU_ROUNDS = 3
+RESUME_EVERY = 5          # the resume phase's checkpoint_every
+MULTI_R = 8               # the multi phase's realizations
+ALLOC_CLIENTS = 100       # where auto picks the vectorized allocator
+# the resume phase's checkpoints, under the git-ignored build/
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 PEAK_FLOPS = 67e12        # H100 SXM float32, outside the tensor cores
 PEAK_BF16 = 989e12        # H100 SXM bf16 tensor cores, dense
 PEAK_TF32 = 495e12        # H100 SXM TF32 tensor cores, dense
@@ -654,6 +677,291 @@ def encode_local_path(torch, dev, state) -> None:
           f" times for {exp.n} clients")
     check(same_x and same_y, "encode_local: the per-client encode differs "
           "from the batched encode")
+
+
+def resume_path(torch, dev, state) -> None:
+    """The main path's coded deployment with checkpoint_every =
+    RESUME_EVERY: killed after one block, resumed in a fresh experiment,
+    against the uninterrupted blocked run."""
+    import shutil
+
+    from repro_torch.api import build_experiment
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.kernels import ops
+
+    spec = dataclasses.replace(state["spec"], checkpoint_every=RESUME_EVERY)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp = build_experiment(spec, state["xs"], state["ys"], device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # one block, then a checkpoint: run_block reads the stream position
+    # from the state, so the experiment's own generator is untouched and
+    # run() below starts the uninterrupted run from the same position
+    first = exp.run_block(exp.init_state(ROUNDS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = exp.save_state(
+        str(CKPT_DIR / f"{ckpt_io.CKPT_PREFIX}{first.rounds_done:06d}.npz"),
+        first)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    killed = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    control = exp.run(ROUNDS)
+    torch.cuda.synchronize()
+    blocked_ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+    control_launches = {k: ops.LAUNCHES[k] - killed[k] for k in killed}
+    del exp, first                                       # the kill
+    t0 = time.perf_counter()
+    fresh = build_experiment(spec, state["xs"], state["ys"], device=dev)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = fresh.restore_state(path)        # digest verified
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    arrays, meta = ckpt_io.restore_state(path, verify=True)
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    resumed = fresh.run(ROUNDS, checkpoint_dir=str(CKPT_DIR), resume=True)
+    torch.cuda.synchronize()
+    resumed_ms = (time.perf_counter() - t0) / (ROUNDS - RESUME_EVERY) * 1e3
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    rounds_launched = (killed["linreg_grad_masked"]
+                       + launches["linreg_grad_masked"]
+                       - before["linreg_grad_masked"])
+    same_theta = bool(torch.equal(resumed.theta, control.theta))
+    same_wall = ([h.wall_clock for h in resumed.history]
+                 == [h.wall_clock for h in control.history])
+    same_ret = ([h.returned for h in resumed.history]
+                == [h.returned for h in control.history])
+    ckpts = sorted(p.name for p in CKPT_DIR.iterdir())
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    emit({"phase": "resume", "rounds": ROUNDS,
+          "checkpoint_every": RESUME_EVERY, "killed_at": restored.rounds_done,
+          "checkpoints": ckpts, "digest_verified": True,
+          "checkpoint_bytes": sum(a.nbytes for a in arrays.values()),
+          "theta_identical": same_theta, "wall_clock_identical": same_wall,
+          "returned_identical": same_ret, "setup_s": setup_s,
+          "rebuild_s": rebuild_s, "save_ms": save_ms,
+          "restore_ms": restore_ms, "blocked_ms_per_round": blocked_ms,
+          "resumed_ms_per_round": resumed_ms,
+          "linreg_grad_masked_killed_and_resumed": rounds_launched,
+          "control_launches": control_launches, "launches": launches,
+          "format": meta["format"]})
+    check(restored.rounds_done == RESUME_EVERY,
+          f"resume: restored {restored.rounds_done} rounds")
+    check(same_theta and same_wall and same_ret,
+          "resume: the resumed run differs from the uninterrupted one")
+    check(rounds_launched == ROUNDS,
+          f"resume: linreg_grad_masked launched {rounds_launched} times over "
+          f"the killed and the resumed run of {ROUNDS} rounds")
+    check(control_launches["linreg_grad_masked"] == ROUNDS,
+          "resume: the uninterrupted run launched linreg_grad_masked "
+          f"{control_launches['linreg_grad_masked']} times")
+    check(len(ckpts) == ROUNDS // RESUME_EVERY,
+          f"resume: checkpoints {ckpts}")
+
+
+def _replay_multi(exp, rng_state, rounds: int, R: int):
+    """(wall clock (R, rounds), returned (R, rounds)) of run_multi,
+    replayed on the host from the same draw: R * rounds delay rows, float32
+    deadlines, as the round step takes them."""
+    from repro_torch.core.delay_model import sample_round_times
+
+    rng = np.random.default_rng()
+    rng.bit_generator.state = rng_state
+    times = sample_round_times(exp.nodes, np.asarray(exp.loads, float),
+                               rng, R * rounds).astype(np.float32)
+    times = times.reshape(R, rounds, exp.n)
+    if exp.step_kind == "coded":
+        t_round = np.full((R, rounds), np.float32(exp.t_star))
+        returned = (times <= np.float32(exp.t_star)).sum(-1)
+    else:                                           # naive
+        t_round = times.max(-1)
+        returned = np.full((R, rounds), exp.n)
+    wall = exp.setup_time + np.cumsum(t_round.astype(np.float64), axis=1)
+    return wall, returned
+
+
+def multi_path(torch, dev, state) -> None:
+    """run_multi(ROUNDS, MULTI_R) on the main path's coded and naive
+    deployments, against the draw replayed on the host, and
+    run_multi(ROUNDS, 1) against run(ROUNDS) from the same position."""
+    from repro_torch.kernels import ops
+
+    for scheme in ("coded", "naive"):
+        exp = state["results"][scheme][0]
+        ops.reset_launch_counts()
+        start = exp.rng.bit_generator.state
+        t0 = time.perf_counter()
+        res = exp.run_multi(ROUNDS, MULTI_R)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        wall, returned = _replay_multi(exp, start, ROUNDS, MULTI_R)
+        same_wall = bool(np.array_equal(res.wall_clock, wall))
+        same_ret = bool(np.array_equal(res.returned, returned))
+        # warm: a second run_multi of the same deployment
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run_multi(ROUNDS, MULTI_R)
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t0) / (ROUNDS * MULTI_R) * 1e3
+        # R = 1 from a known position against run() from the same one
+        pos = exp.rng.bit_generator.state
+        one = exp.run(ROUNDS)
+        exp.rng.bit_generator.state = pos
+        multi_one = exp.run_multi(ROUNDS, 1)
+        same_one = (bool(torch.equal(multi_one.theta[0], one.theta))
+                    and multi_one.wall_clock[0].tolist()
+                    == [h.wall_clock for h in one.history])
+        all_launches = dict(ops.LAUNCHES)
+        add_launches(state, all_launches)
+        mean, std = res.wall_clock_bands()
+        finite = bool(torch.isfinite(res.theta).all())
+        emit({"phase": "multi", "scheme": scheme, "rounds": ROUNDS,
+              "realizations": MULTI_R, "wall_clock_shape":
+              list(res.wall_clock.shape), "wall_clock_replayed": same_wall,
+              "returned_replayed": same_ret, "one_realization_is_run":
+              same_one, "final_mean": float(mean[-1]),
+              "final_std": float(std[-1]), "first_s": first_s,
+              "warm_ms_per_realization_round": warm,
+              "launches": launches, "phase_launches": all_launches,
+              "theta_finite": finite})
+        check(same_wall and same_ret, f"multi {scheme}: wall clock or "
+              "returned counts differ from the host replay")
+        check(same_one, f"multi {scheme}: run_multi(ROUNDS, 1) differs "
+              "from run(ROUNDS)")
+        check(finite, f"multi {scheme}: theta is not finite")
+        check(launches["linreg_grad_masked"] == ROUNDS * MULTI_R,
+              f"multi {scheme}: linreg_grad_masked launched "
+              f"{launches['linreg_grad_masked']} times, expected "
+              f"{ROUNDS * MULTI_R}")
+
+
+def alloc_path(torch, dev, state) -> None:
+    """MNIST-RFF at ALLOC_CLIENTS clients: the vectorized allocator on the
+    card against the scalar one on the host, then a coded deployment whose
+    auto backend picks it."""
+    from repro_torch.api import build_experiment
+    from repro_torch.config import FLConfig
+    from repro_torch.core import load_allocation as la
+    from repro_torch.core import rff
+    from repro_torch.core.delay_model import mec_network
+    from repro_torch.data import sharding
+    from repro_torch.kernels import ops
+
+    ds, n = state["ds"], ALLOC_CLIENTS
+    ops.reset_launch_counts()
+    xh = rff.rff_transform(state["x_tr"], state["omega"],
+                           state["delta"]).cpu().numpy()
+    fl = dataclasses.replace(state["spec"].fl, n_clients=n)
+    q, c = xh.shape[1], ds.n_classes
+    nodes = mec_network(fl, d_scalars_per_point=q * c)
+    shards = sharding.sort_and_shard(xh, ds.y_train, n)
+    per_client = sharding.assign_shards_by_speed(
+        shards, nodes, minibatch=xh.shape[0] // n)
+    xs = np.stack([cl[0] for cl in per_client])
+    ys = np.stack([ds.one_hot(cl[1]) for cl in per_client])
+    spec = dataclasses.replace(state["spec"], fl=fl)
+    t0 = time.perf_counter()
+    exp = build_experiment(spec, xs, ys, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    backend = exp._pick_alloc_backend()
+    l, caps = exp.l, [float(exp.l)] * n
+    args = (exp.nodes, caps, None, float(exp.u), float(exp.m))
+    times = []
+    for _ in range(2):          # the first call pays the lazy CUDA modules
+        t0 = time.perf_counter()
+        vec = la.two_step_allocate_vectorized(*args, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sca = la.two_step_allocate(*args)
+    scalar_s = time.perf_counter() - t0
+    t_err = abs(vec.t_star - sca.t_star) / (1.0 + sca.t_star)
+    load_err = float(np.max(np.abs(vec.loads - sca.loads)))
+    lv, _ = la.vectorized_optimal_loads(exp.nodes, vec.t_star, caps,
+                                        device=dev)
+    node_err = max(abs(lv[j] - la.optimal_load(nd, vec.t_star, l)[0])
+                   for j, nd in enumerate(exp.nodes)) / (1.0 + l)
+    floored = np.minimum(np.floor(sca.loads).astype(int), l)
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    res = exp.run(ROUNDS)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    run_launches = {k: launches[k] - before[k] for k in launches}
+    finite = bool(torch.isfinite(res.theta).all())
+    emit({"phase": "alloc", "clients": n, "l": l, "u": exp.u,
+          "backend": backend, "grid_width": la.vectorized_grid_width(
+              exp.nodes), "vectorized_s": times, "scalar_s": scalar_s,
+          "t_star_vectorized": vec.t_star, "t_star_scalar": sca.t_star,
+          "t_star_rel_err": t_err, "loads_max_abs_err": load_err,
+          "node_for_node_err": node_err,
+          "floored_loads_differ": int((exp.loads != floored).sum()),
+          "experiment_t_star": exp.t_star, "setup_s": setup_s,
+          "alloc_s": times[-1], "ms_per_round": run_ms,
+          "returned": [h.returned for h in res.history],
+          "wall_clock": res.history[-1].wall_clock,
+          "launches": launches, "theta_finite": finite})
+    check(backend == "vectorized", f"alloc: auto picked {backend!r}")
+    check(t_err <= 2e-6, f"alloc: t* {vec.t_star} vs {sca.t_star}")
+    check(load_err <= 1e-4 * (1.0 + l), f"alloc: loads differ by {load_err}")
+    check(node_err <= 1e-6, f"alloc: node-for-node error {node_err}")
+    check(abs(exp.t_star - sca.t_star) <= 2e-6 * (1.0 + sca.t_star),
+          f"alloc: the experiment's t* {exp.t_star}")
+    check(finite, "alloc: theta is not finite")
+    check(run_launches["linreg_grad_masked"] == ROUNDS,
+          f"alloc: linreg_grad_masked launched "
+          f"{run_launches['linreg_grad_masked']} times in {ROUNDS} rounds")
+    check(launches["parity_encode_batched"] == 2,
+          "alloc: parity_encode_batched not launched twice")
+    del exp, res
+    _release(torch)
+
+
+def quickstart_path(torch, dev, state) -> None:
+    """repro_torch.launch.quickstart.main() on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart
+
+    ops.reset_launch_counts()
+    lines = []
+    t0 = time.perf_counter()
+    rounds, R = 100, 8                     # the reference script's
+    out = quickstart.main(rounds, R, device=dev, out=lines.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    bands = {k: [float(v[0][-1]), float(v[1][-1])]
+             for k, v in out["bands"].items()}
+    finite = all(np.isfinite(v[0]).all() and np.isfinite(v[1]).all()
+                 for v in out["bands"].values())
+    table = {k: {"accuracy": v["accuracy"], "wall_clock": v["wall_clock"],
+                 "t_star": v["t_star"], "privacy_eps": v["privacy_eps"]}
+             for k, v in out["table"].items()}
+    # 5 schemes, the control, the killed block and the resumed rest, and
+    # run_multi over R realizations for naive and coded
+    want = 5 * rounds + 2 * rounds + 2 * R * rounds
+    emit({"phase": "quickstart", "seconds": seconds, "table": table,
+          "resume_identical": out["resume_identical"],
+          "killed_at": out["killed_at"], "bands_final": bands,
+          "launches": launches, "expected_linreg_grad_masked": want})
+    check(out["resume_identical"], "quickstart: resume not bit-identical")
+    check(finite, "quickstart: bands not finite")
+    check(launches["linreg_grad_masked"] == want,
+          f"quickstart: linreg_grad_masked launched "
+          f"{launches['linreg_grad_masked']} times, expected {want}")
+    check(all(math.isfinite(v["accuracy"]) and v["accuracy"] > 0.5
+              for v in table.values()), "quickstart: accuracy")
 
 
 def _release(torch) -> None:
@@ -1558,7 +1866,8 @@ def main() -> int:
     state = main_path(torch, dev)
     emit({"phase": "main", "seconds": time.perf_counter() - t0})
     for phase in (cpu_twin, fused_embed_path, unfused_path, legacy_path,
-                  encode_local_path, serve_path, serve_check, serve_cpu):
+                  encode_local_path, resume_path, multi_path, alloc_path,
+                  quickstart_path, serve_path, serve_check, serve_cpu):
         t0 = time.perf_counter()
         phase(torch, dev, state)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})

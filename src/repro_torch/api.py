@@ -20,14 +20,16 @@ import numpy as np
 from repro_torch.config import ExperimentSpec, unsupported_features
 from repro_torch.core import schemes
 from repro_torch.core.fed_runtime import (Experiment, FedResult,  # noqa: F401
-                                          RoundLog, RunHealth)
+                                          MultiFedResult, RoundLog,
+                                          RunHealth)
+from repro_torch.core.run_state import RunState  # noqa: F401
 from repro_torch.core.schemes import (Scheme, get_scheme,  # noqa: F401
                                       register, registered_names)
 
 __all__ = [
-    "ExperimentSpec", "Experiment", "FedResult", "RoundLog", "RunHealth",
-    "Scheme", "build_experiment", "get_scheme", "register",
-    "registered_names",
+    "ExperimentSpec", "Experiment", "FedResult", "MultiFedResult",
+    "RoundLog", "RunHealth", "RunState", "Scheme", "build_experiment",
+    "get_scheme", "register", "registered_names",
 ]
 
 def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,

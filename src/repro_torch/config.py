@@ -7,10 +7,11 @@ as JSON revives here with ``ExperimentSpec.from_dict``.
 
 The port runs the stationary flat engine: the batched engine with the
 fused or unfused coded round (``fused_coded``), with raw features embedded
-in the gradient kernel (``fused_embed``), and the legacy per-client oracle
+in the gradient kernel (``fused_embed``), block-structured and
+checkpointed (``checkpoint_every``), and the legacy per-client oracle
 (``engine="legacy"``).  A spec may still name a feature the port does not
 have yet (channel dynamics, fault injection, the hierarchical tier, a
-client mesh, secure aggregation, the adaptive schemes, checkpointed runs):
+client mesh, secure aggregation, the adaptive schemes):
 the spec holds it so that it round-trips, and ``build_experiment`` raises
 ``NotImplementedError`` naming the feature (`unsupported_features`).
 Combinations the reference refuses when a spec is made (``fused_embed``
@@ -385,6 +386,5 @@ def unsupported_features(spec: ExperimentSpec) -> list[str]:
          "the hierarchical tier (hier_shards/sample_fraction)"),
         (spec.mesh is not None, "client-mesh sharding (mesh)"),
         (spec.secure_aggregation, "secure aggregation"),
-        (spec.checkpoint_every > 0, "checkpointed runs (checkpoint_every)"),
     )
     return [name for asked, name in checks if asked]

@@ -10,23 +10,32 @@ the ``rff_linreg_grad_masked`` kernel embeds tile by tile every round:
 
   * the scheme's setup runs on the host (allocation, subsets, weights) and
     on the device (parity encode, dense client tensors);
-  * the whole run's delays are pre-sampled with one vectorized
-    ``sample_round_times`` call on the experiment's host generator, after
-    the setup has drawn its subsets from it, exactly as the reference
-    orders its draws;
-  * the reference's ``lax.scan`` becomes a Python loop over the rounds,
-    one block for the whole horizon (the reference's
-    ``checkpoint_every=0``).  Each round is one ``linreg_grad_masked``
-    launch over the dense (rows, L, q) tensor (``rff_linreg_grad_masked``
-    over the raw (n, L, d) one with ``fused_embed``), the returned-mask sum
-    and the guarded SGD update, all on the device; the host reads the
-    per-round records back once, after the loop.
+  * runs are block-structured, as in the reference: ``run(iterations)`` is
+    ``init_state`` then ``run_block`` calls over an explicit
+    `repro_torch.core.run_state.RunState`, then ``finish``.  A block is
+    ``spec.checkpoint_every`` rounds (0: the whole horizon in one block).
+    Each block draws its delays with one vectorized ``sample_round_times``
+    call on a generator restored from the state, so ``save_state`` /
+    ``restore_state`` (`repro_torch.checkpoint.io`, the reference's file
+    format) give a kill/resume at any block boundary that is bit-identical
+    to the uninterrupted blocked run;
+  * the reference's ``lax.scan`` becomes a Python loop over a block's
+    rounds.  Each round is one ``linreg_grad_masked`` launch over the
+    dense (rows, L, q) tensor (``rff_linreg_grad_masked`` over the raw
+    (n, L, d) one with ``fused_embed``), the returned-mask sum and the
+    guarded SGD update, all on the device; the host reads the per-round
+    records back once a block;
+  * ``run_multi(iterations, R)`` draws R * K delay rows a block, as the
+    reference's vmapped scan takes them, and runs the realizations one
+    after another through the same step (``MultiFedResult``, the Fig. 4/5
+    confidence bands).
 
 ``engine="legacy"`` is the reference's per-client oracle: a host loop with
-no guards, one ``linreg_grad`` launch per returned loaded client plus one
-for the coded gradient (coded), or one mask-free ``linreg_grad_batched``
-launch (naive, greedy, ideal), on delays drawn by the same
-``sample_round_times`` call from the same generator as the batched run.
+no guards and no run state, one ``linreg_grad`` launch per returned loaded
+client plus one for the coded gradient (coded), or one mask-free
+``linreg_grad_batched`` launch (naive, greedy, ideal), on delays drawn by
+the same ``sample_round_times`` call from the same generator as the batched
+run.
 
 Delays go to float32 before the step and deadlines are compared in float32,
 as in the reference, so returned counts and the wall clock
@@ -42,16 +51,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.config import ExperimentSpec, unsupported_features
 from repro_torch.core import aggregation, rff, schemes
 from repro_torch.core.delay_model import (mec_network, packet_bits,
                                           sample_round_times, scale_tau)
 from repro_torch.core.load_allocation import vectorized_grid_width
+from repro_torch.core.run_state import RunState, pack_state, unpack_state
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
@@ -90,6 +102,29 @@ class FedResult:
     setup_time: float = 0.0    # parity upload overhead (coded only)
     privacy_eps: float | None = None
     health: RunHealth | None = None
+
+
+@dataclasses.dataclass
+class MultiFedResult:
+    """One deployment, R independent delay realizations.
+
+    theta: (R, q, c) final iterates; wall_clock / returned: (R, iterations)
+    cumulative simulated seconds (incl. setup) and per-round return counts.
+    """
+    theta: torch.Tensor
+    wall_clock: np.ndarray
+    returned: np.ndarray
+    t_star: float | None = None
+    loads: np.ndarray | None = None
+    setup_time: float = 0.0
+    accuracy: np.ndarray | None = None   # (R,) if an eval_fn was supplied
+    privacy_eps: float | None = None
+    health: RunHealth | None = None      # over all realizations
+
+    def wall_clock_bands(self) -> tuple[np.ndarray, np.ndarray]:
+        """(mean, std) over realizations, each (iterations,): the Fig. 4/5
+        curve with its confidence band."""
+        return (self.wall_clock.mean(axis=0), self.wall_clock.std(axis=0))
 
 
 def guard_and_sum(g, ret, guard: bool):
@@ -235,6 +270,7 @@ class Experiment:
         self.fused_coded = spec.fused_coded
         self.fused_embed = spec.fused_embed
         self.nonfinite_guard = bool(spec.nonfinite_guard)
+        self.checkpoint_every = spec.checkpoint_every
         self.scheme = spec.resolved_scheme
         self.scheme_obj = schemes.get_scheme(self.scheme)
         self.step_kind = self.scheme_obj.step_kind
@@ -281,6 +317,7 @@ class Experiment:
         self.scheme_obj.setup(self)
         self.privacy_eps = self.scheme_obj.privacy_budget(self)
         self._consts = None     # built lazily on the first run
+        self._step = None
 
     def _rff_params(self, spec: ExperimentSpec, rff_draw):
         """(Omega (d, q), delta (q,)) of the fused_embed path: `rff_draw`
@@ -357,70 +394,391 @@ class Experiment:
                 lr *= self.train.lr_decay
         return lr
 
-    def _lr_schedule(self, iterations: int) -> np.ndarray:
+    def _lr_schedule_range(self, r0: int, r1: int) -> np.ndarray:
+        """Per-round learning rates for global rounds [r0, r1): blocks
+        read their position from the global cursor, so the schedule does
+        not depend on how the run is cut into blocks."""
         return np.array([self._lr(it // self.steps_per_epoch)
-                         for it in range(iterations)], np.float32)
+                         for it in range(r0, r1)], np.float32)
+
+    def _lr_schedule(self, iterations: int) -> np.ndarray:
+        return self._lr_schedule_range(0, iterations)
+
+    # ------------------------------------------------- block-structured runs
+    def _get_consts(self) -> dict:
+        if self._consts is None:
+            self._consts = self.build_consts()
+        return self._consts
+
+    def _get_step(self):
+        if self._step is None:
+            self._step = build_step(self.step_static())
+        return self._step
+
+    def _rounds(self, theta, lr_scale, times, lrs, eval_at=None):
+        """The reference's ``lax.scan`` as a Python loop: one `build_step`
+        step a round from the carry (theta, lr_scale), on the device.
+        `times` (K, n) float32 delays and `lrs` (K,) on the device;
+        ``eval_at(k, theta)`` sees each round's new iterate.  Returns the
+        final carry and the (K,) per-round columns (t_round, n_ret,
+        n_masked, skipped), still on the device."""
+        consts, step = self._get_consts(), self._get_step()
+        carry = (theta, torch.tensor(float(lr_scale), dtype=torch.float32,
+                                     device=self.device))
+        outs = []
+        for k in range(times.shape[0]):
+            carry, out = step(consts, carry, (times[k], lrs[k]))
+            outs.append(out)
+            if eval_at is not None:
+                eval_at(k, carry[0])
+        return carry, [torch.stack(col) for col in zip(*outs)]
+
+    def init_state(self, iterations: int, *,
+                   n_realizations: Optional[int] = None,
+                   collect: bool = False) -> RunState:
+        """Fresh `RunState` for a run of `iterations` rounds.
+
+        ``n_realizations=None`` starts a "single" run, otherwise a
+        "multi" one (blocks advance all realizations' cursors together).
+        The state is seeded from this experiment's live RNG, so runs
+        launched back to back consume disjoint draws.
+        """
+        iterations = int(iterations)
+        if iterations < 1:
+            raise ValueError(f"iterations={iterations} must be >= 1")
+        if n_realizations is None:
+            mode, R, lead, lr_scale = "single", None, (), 1.0
+        else:
+            R = int(n_realizations)
+            if R < 1:
+                raise ValueError(f"n_realizations={R} must be >= 1")
+            mode, lead, lr_scale = "multi", (R,), np.ones(R, np.float64)
+            collect = False
+        losses = accs = None
+        if collect:
+            losses = np.zeros(0, np.float64)
+            accs = np.zeros(0, np.float64)
+        return RunState(
+            mode=mode, iterations=iterations, rounds_done=0,
+            realizations_done=0, n_realizations=R, collect=bool(collect),
+            theta=torch.zeros(lead + (self.q, self.c), dtype=torch.float32,
+                              device=self.device),
+            rng_state=self.rng.bit_generator.state, trace_call=-1,
+            trace=None, est=None, controls=None,
+            t_rounds=np.zeros(lead + (0,), np.float64),
+            n_ret=np.zeros(lead + (0,), np.int32), losses=losses, accs=accs,
+            sched=None, lr_scale=lr_scale,
+            n_masked=np.zeros(lead + (0,), np.int64),
+            skipped=np.zeros(lead + (0,), np.int64))
+
+    def run_block(self, state: RunState, n_rounds: Optional[int] = None, *,
+                  eval_fn: Optional[Callable] = None,
+                  eval_every: int = 10) -> RunState:
+        """Advance a run by one block and return the NEW `RunState` (the
+        input is never mutated, so replaying a block from a saved state is
+        always safe).
+
+        ``n_rounds`` defaults to ``spec.checkpoint_every``, or the whole
+        remaining horizon when that is 0.  A "single" run initialized with
+        ``collect=True`` must be given its ``eval_fn`` on every block.
+        """
+        if state.mode == "multi_channel":
+            raise NotImplementedError(
+                "the PyTorch port does not support channel dynamics yet "
+                "(a 'multi_channel' run)")
+        if state.mode == "hier":
+            raise NotImplementedError(
+                "the PyTorch port does not support the hierarchical tier "
+                "yet (a 'hier' run)")
+        if state.done:
+            raise ValueError(
+                "run is already complete "
+                f"({state.rounds_done}/{state.iterations} rounds)")
+        if state.mode == "single":
+            if state.collect and eval_fn is None:
+                raise ValueError("state was initialized with collect=True; "
+                                 "run_block needs its eval_fn")
+            if not state.collect and eval_fn is not None:
+                raise ValueError(
+                    "state was initialized with collect=False; re-init "
+                    "with collect=True to evaluate during the run")
+        # detached generator: the stream position lives in the state, not
+        # in this Experiment, so replaying a restored block is hermetic
+        rng = np.random.default_rng()
+        rng.bit_generator.state = state.rng_state
+        r0 = state.rounds_done
+        K = int(n_rounds) if n_rounds is not None else (
+            self.checkpoint_every or state.iterations)
+        if K < 1:
+            raise ValueError(f"n_rounds={K} must be >= 1")
+        K = min(K, state.iterations - r0)
+        lrs = torch.from_numpy(self._lr_schedule_range(r0, r0 + K)).to(
+            self.device)
+        if state.mode == "multi":
+            return self._block_multi(state, rng, K, lrs)
+        return self._block_single(state, rng, K, lrs, eval_fn, eval_every)
+
+    def _delays(self, rng, rounds: int) -> torch.Tensor:
+        """(rounds, n) float32 delays on the device, one vectorized draw."""
+        times = sample_round_times(self.nodes, np.asarray(self.loads, float),
+                                   rng, rounds)
+        return torch.from_numpy(times.astype(np.float32)).to(self.device)
+
+    def _block_single(self, state: RunState, rng, K: int, lrs, eval_fn,
+                      eval_every: int) -> RunState:
+        """K rounds of a single trajectory on pre-sampled delays."""
+        r0 = state.rounds_done
+        eval_at = None
+        losses, accs = state.losses, state.accs
+        if state.collect:
+            loss_b = np.full(K, np.nan)
+            acc_b = np.full(K, np.nan)
+
+            def eval_at(k, theta):
+                it = r0 + k
+                if it % eval_every == 0 or it == state.iterations - 1:
+                    loss, acc = eval_fn(theta)
+                    loss_b[k], acc_b[k] = float(loss), float(acc)
+        carry, cols = self._rounds(state.theta, state.lr_scale,
+                                   self._delays(rng, K), lrs, eval_at)
+        t_rounds, n_ret, n_masked, skipped = (c.cpu().numpy() for c in cols)
+        if state.collect:
+            losses = np.concatenate([state.losses, loss_b])
+            accs = np.concatenate([state.accs, acc_b])
+        return dataclasses.replace(
+            state, rounds_done=r0 + K, theta=carry[0],
+            rng_state=rng.bit_generator.state,
+            t_rounds=np.concatenate(
+                [state.t_rounds, t_rounds.astype(np.float64)]),
+            n_ret=np.concatenate([state.n_ret, n_ret]),
+            losses=losses, accs=accs, lr_scale=float(carry[1]),
+            n_masked=np.concatenate(
+                [state.n_masked, n_masked.astype(np.int64)]),
+            skipped=np.concatenate(
+                [state.skipped, skipped.astype(np.int64)]))
+
+    def _block_multi(self, state: RunState, rng, K: int, lrs) -> RunState:
+        """K rounds of every stationary realization: one draw of R * K
+        delay rows, as the reference's vmapped scan takes them, then the
+        realizations one after another through the same step (one
+        gradient launch a realization a round)."""
+        R = int(state.n_realizations)
+        times = self._delays(rng, R * K).reshape(R, K, self.n)
+        thetas, scales, cols = [], [], []
+        for r in range(R):
+            carry, cols_r = self._rounds(state.theta[r], state.lr_scale[r],
+                                         times[r], lrs)
+            thetas.append(carry[0])
+            scales.append(carry[1])
+            cols.append(cols_r)
+        t_rounds, n_ret, n_masked, skipped = (
+            torch.stack(col).cpu().numpy() for col in zip(*cols))
+        return dataclasses.replace(
+            state, rounds_done=state.rounds_done + K,
+            theta=torch.stack(thetas), rng_state=rng.bit_generator.state,
+            t_rounds=np.concatenate(
+                [state.t_rounds, t_rounds.astype(np.float64)], axis=1),
+            n_ret=np.concatenate([state.n_ret, n_ret], axis=1),
+            lr_scale=torch.stack(scales).cpu().numpy().astype(np.float64),
+            n_masked=np.concatenate(
+                [state.n_masked, n_masked.astype(np.int64)], axis=1),
+            skipped=np.concatenate(
+                [state.skipped, skipped.astype(np.int64)], axis=1))
+
+    # ---------------------------------------------------- checkpoint/restore
+    def save_state(self, path: str, state: RunState) -> str:
+        """Checkpoint `state` atomically (`repro_torch.checkpoint.io`),
+        with this experiment's `ExperimentSpec` as JSON provenance."""
+        arrays, meta = pack_state(state)
+        meta["spec"] = self.spec.to_dict()
+        return ckpt_io.save_state(path, arrays, meta)
+
+    def restore_state(self, path: str) -> RunState:
+        """Load a `RunState` checkpoint (digest verified) onto this
+        experiment's device, refusing one saved by another spec."""
+        arrays, meta = ckpt_io.restore_state(path)
+        spec_dict = meta.get("spec")
+        if spec_dict is not None:
+            saved = ExperimentSpec.from_dict(spec_dict)
+            if saved != self.spec:
+                raise ValueError(
+                    f"checkpoint provenance mismatch: {path!r} was saved "
+                    "by a run of a different ExperimentSpec than this "
+                    "experiment's; refusing to resume across specs")
+        return unpack_state(arrays, meta, device=self.device)
+
+    # ------------------------------------------------------------ finalizing
+    def finish(self, state: RunState,
+               eval_fn: Optional[Callable] = None):
+        """Turn a completed `RunState` into a `FedResult` (single) or a
+        `MultiFedResult` (multi), and sync this experiment's RNG to the
+        run's end, so back-to-back runs consume disjoint draws."""
+        if not state.done:
+            raise ValueError(
+                f"run is not complete ({state.rounds_done}/"
+                f"{state.iterations} rounds); call run_block until "
+                "state.done")
+        self.rng.bit_generator.state = state.rng_state
+        if state.mode == "single":
+            return self._finish_single(state)
+        return self._finish_multi(state, eval_fn)
+
+    @staticmethod
+    def _run_health(state: RunState) -> "RunHealth | None":
+        if state.n_masked is None:
+            return None
+        ls = np.asarray(state.lr_scale, np.float64)
+        return RunHealth(
+            rounds_degraded=int(np.sum(np.asarray(state.n_masked) > 0)),
+            returns_masked=int(np.sum(state.n_masked)),
+            rounds_skipped=int(np.sum(state.skipped)),
+            lr_scale=float(ls.min() if ls.ndim else ls))
+
+    def _finish_single(self, state: RunState) -> FedResult:
+        wall = self.setup_time + np.cumsum(state.t_rounds)
+        # a format-1 checkpoint of the reference has no guard counters
+        have_guards = state.n_masked is not None
+        history = []
+        for it in range(state.iterations):
+            loss = float(state.losses[it]) if state.collect else float("nan")
+            acc = float(state.accs[it]) if state.collect else float("nan")
+            history.append(RoundLog(
+                it, float(wall[it]), int(state.n_ret[it]), loss, acc,
+                n_masked=int(state.n_masked[it]) if have_guards else 0,
+                skipped=int(state.skipped[it]) if have_guards else 0))
+        return FedResult(theta=state.theta, history=history,
+                         t_star=self.t_star, loads=self.loads,
+                         setup_time=self.setup_time,
+                         privacy_eps=self.privacy_eps,
+                         health=self._run_health(state))
+
+    def _finish_multi(self, state: RunState, eval_fn) -> MultiFedResult:
+        """`eval_fn` sees the realizations' final iterates one by one."""
+        wall = self.setup_time + np.cumsum(state.t_rounds, axis=1)
+        theta = state.theta
+        acc = None
+        if eval_fn is not None:
+            acc = np.array([eval_fn(theta[r])[1]
+                            for r in range(theta.shape[0])])
+        return MultiFedResult(theta=theta, wall_clock=wall,
+                              returned=np.asarray(state.n_ret),
+                              t_star=self.t_star, loads=self.loads,
+                              setup_time=self.setup_time, accuracy=acc,
+                              privacy_eps=self.privacy_eps,
+                              health=self._run_health(state))
+
+    def _drive(self, state: RunState, checkpoint_dir: Optional[str],
+               eval_fn=None, eval_every: int = 10) -> RunState:
+        """Advance `state` to completion block by block, checkpointing each
+        block boundary when a directory is given."""
+        while not state.done:
+            state = self.run_block(state, eval_fn=eval_fn,
+                                   eval_every=eval_every)
+            if checkpoint_dir is not None:
+                self.save_state(
+                    os.path.join(
+                        checkpoint_dir,
+                        f"{ckpt_io.CKPT_PREFIX}{state.rounds_done:06d}.npz"),
+                    state)
+        return state
+
+    def _latest_state(self, checkpoint_dir: Optional[str]):
+        """(path, state) of the newest intact checkpoint in the
+        directory, or (None, None)."""
+        if checkpoint_dir is None:
+            raise ValueError("resume=True requires checkpoint_dir")
+        latest = ckpt_io.latest_checkpoint(checkpoint_dir, valid_only=True)
+        if latest is None:
+            return None, None
+        return latest, self.restore_state(latest)
 
     # ------------------------------------------------------------------- runs
     def run(self, iterations: int,
             eval_fn: Optional[Callable[[torch.Tensor],
                                        tuple[float, float]]] = None,
-            eval_every: int = 10) -> FedResult:
-        """Run `iterations` rounds from theta = 0.
+            eval_every: int = 10, *, checkpoint_dir: Optional[str] = None,
+            resume: bool = False) -> FedResult:
+        """Run `iterations` rounds from theta = 0 as a chain of
+        `run_block` calls: a block is ``spec.checkpoint_every`` rounds, or
+        the whole horizon when that is 0.
 
         `eval_fn(theta) -> (loss, accuracy)` is called on the round's new
         iterate at every `eval_every`-th round and at the last one; the
-        other rounds log NaN.
+        other rounds log NaN.  ``checkpoint_dir`` writes an atomic
+        `RunState` checkpoint at every block boundary; ``resume=True``
+        restores the newest intact one there (if any) and continues,
+        bit-identical to the uninterrupted blocked run.
         """
-        iterations = int(iterations)
-        if iterations < 1:
-            raise ValueError(f"iterations={iterations} must be >= 1")
         if self.engine == "legacy":
+            if checkpoint_dir is not None or resume:
+                raise ValueError(
+                    "checkpointing requires the batched engine; the legacy "
+                    "per-client oracle has no block-structured run state")
+            iterations = int(iterations)
+            if iterations < 1:
+                raise ValueError(f"iterations={iterations} must be >= 1")
             times = sample_round_times(self.nodes,
                                        np.asarray(self.loads, float),
                                        self.rng, iterations)
             return self._run_legacy(iterations, times,
                                     self._lr_schedule(iterations), eval_fn,
                                     eval_every)
-        if self._consts is None:
-            self._consts = self.build_consts()
-        consts = self._consts
-        step = build_step(self.step_static())
-        times = sample_round_times(self.nodes,
-                                   np.asarray(self.loads, float),
-                                   self.rng, iterations)
-        t_dev = torch.from_numpy(times.astype(np.float32)).to(self.device)
-        lr_dev = torch.from_numpy(self._lr_schedule(iterations)).to(
-            self.device)
-        carry = (torch.zeros((self.q, self.c), dtype=torch.float32,
-                             device=self.device),
-                 torch.ones((), dtype=torch.float32, device=self.device))
-        outs = []
-        losses = np.full(iterations, np.nan)
-        accs = np.full(iterations, np.nan)
-        for it in range(iterations):
-            carry, out = step(consts, carry, (t_dev[it], lr_dev[it]))
-            outs.append(out)
-            if eval_fn is not None and (it % eval_every == 0
-                                        or it == iterations - 1):
-                loss, acc = eval_fn(carry[0])
-                losses[it], accs[it] = float(loss), float(acc)
-        t_rounds, n_ret, n_masked, skipped = (
-            torch.stack(col).cpu().numpy() for col in zip(*outs))
-        wall = self.setup_time + np.cumsum(t_rounds.astype(np.float64))
-        history = [
-            RoundLog(it, float(wall[it]), int(n_ret[it]), float(losses[it]),
-                     float(accs[it]), n_masked=int(n_masked[it]),
-                     skipped=int(skipped[it]))
-            for it in range(iterations)]
-        health = RunHealth(
-            rounds_degraded=int(np.sum(n_masked > 0)),
-            returns_masked=int(np.sum(n_masked)),
-            rounds_skipped=int(np.sum(skipped)),
-            lr_scale=float(carry[1]))
-        return FedResult(theta=carry[0], history=history, t_star=self.t_star,
-                         loads=self.loads, setup_time=self.setup_time,
-                         privacy_eps=self.privacy_eps, health=health)
+        state = None
+        if resume:
+            latest, state = self._latest_state(checkpoint_dir)
+            if state is not None:
+                if state.mode != "single":
+                    raise ValueError(
+                        f"checkpoint {latest!r} holds a {state.mode!r} "
+                        "run; resume it with run_multi")
+                if state.iterations != int(iterations):
+                    raise ValueError(
+                        f"checkpoint {latest!r} is a {state.iterations}-"
+                        f"round run; this run asked for {iterations}")
+                if state.collect != (eval_fn is not None):
+                    raise ValueError(
+                        f"checkpoint {latest!r} was saved with collect="
+                        f"{state.collect}; pass a matching eval_fn")
+        if state is None:
+            state = self.init_state(iterations, collect=eval_fn is not None)
+        state = self._drive(state, checkpoint_dir, eval_fn, eval_every)
+        return self.finish(state)
+
+    def run_multi(self, iterations: int, n_realizations: int,
+                  eval_fn: Optional[Callable[[torch.Tensor],
+                                             tuple[float, float]]] = None,
+                  *, checkpoint_dir: Optional[str] = None,
+                  resume: bool = False) -> MultiFedResult:
+        """R independent delay realizations of the same deployment.
+
+        The (R, iterations) wall-clock / return-count surface: mean and
+        std over axis 0 are the Fig. 4/5 curve with its confidence band
+        (`MultiFedResult.wall_clock_bands`).  Always runs the batched
+        step, whatever ``spec.engine``; `eval_fn` is called on each
+        realization's final iterate.  ``checkpoint_dir``/``resume`` work
+        at block boundaries exactly as in `run`.
+        """
+        state = None
+        if resume:
+            latest, state = self._latest_state(checkpoint_dir)
+            if state is not None:
+                if state.mode == "single":
+                    raise ValueError(
+                        f"checkpoint {latest!r} holds a single run; "
+                        "resume it with run()")
+                if (state.iterations != int(iterations)
+                        or int(state.n_realizations)
+                        != int(n_realizations)):
+                    raise ValueError(
+                        f"checkpoint {latest!r} is a {state.iterations}-"
+                        f"round x {state.n_realizations}-realization run; "
+                        f"this run asked for {iterations} x "
+                        f"{n_realizations}")
+        if state is None:
+            state = self.init_state(iterations,
+                                    n_realizations=n_realizations)
+        state = self._drive(state, checkpoint_dir)
+        return self.finish(state, eval_fn)
 
     # ---------------------------------------------------------- legacy engine
     def _run_legacy(self, iterations: int, times_all: np.ndarray,

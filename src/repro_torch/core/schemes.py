@@ -105,14 +105,13 @@ class CodedScheme(Scheme):
         fl = exp.fl
         u_max = self.u_budget(exp)
         if exp._pick_alloc_backend() == "vectorized":
-            raise NotImplementedError(
-                "the vectorized load-allocation solver is not ported yet; "
-                "the reference picks it here (alloc_backend="
-                f"{exp.alloc_backend!r}, n={exp.n}) and its floored loads "
-                "can differ from the scalar solver's")
-        alloc = load_allocation.two_step_allocate(
-            exp.nodes, [float(exp.l)] * exp.n, server=None,
-            u_max=float(u_max), m=float(exp.m))
+            alloc = load_allocation.two_step_allocate_vectorized(
+                exp.nodes, [float(exp.l)] * exp.n, server=None,
+                u_max=float(u_max), m=float(exp.m), device=exp.device)
+        else:
+            alloc = load_allocation.two_step_allocate(
+                exp.nodes, [float(exp.l)] * exp.n, server=None,
+                u_max=float(u_max), m=float(exp.m))
         exp.t_star = alloc.t_star
         exp.u = u_max
         # integer loads (floor, at least 0)

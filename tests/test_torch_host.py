@@ -181,12 +181,12 @@ _UNSUPPORTED = [
     ("adaptive", dict(scheme="adaptive_coded", adapt_every=2), "adaptive",
      None),
     ("fused_embed", dict(fused_embed=True, rff=t_config.RFFConfig(q=8),
-                         checkpoint_every=4), "checkpoint", "fused_embed"),
+                         secure_aggregation=True), "secure aggregation",
+     "fused_embed"),
     ("fused_coded=False", dict(fused_coded=False, mesh=2), "client-mesh",
      "fused_coded"),
     ("legacy", dict(engine="legacy", secure_aggregation=True),
      "secure aggregation", "legacy"),
-    ("checkpoint", dict(checkpoint_every=4), "checkpoint", None),
 ]
 
 
@@ -202,16 +202,6 @@ def test_unsupported_feature_raises_at_build(kw, feature, ported):
     if ported is not None:
         assert ported not in str(info.value)
         assert ported not in " ".join(t_config.unsupported_features(spec))
-
-
-def test_vectorized_allocation_is_refused():
-    """Where the reference would run its vectorized solver, the port raises
-    instead of quietly running the scalar one."""
-    spec = t_config.ExperimentSpec(fl=t_config.FLConfig(n_clients=4),
-                                   alloc_backend="vectorized")
-    with pytest.raises(NotImplementedError, match="vectorized"):
-        t_api.build_experiment(spec, np.zeros((4, 6, 8), np.float32),
-                               np.zeros((4, 6, 2), np.float32), device="cpu")
 
 
 def test_default_device_is_the_gpu():
