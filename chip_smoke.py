@@ -48,7 +48,35 @@ Phases, each printed as one JSON object per line:
              whose auto backend picks the vectorized solver, run 20 rounds;
  12. quickstart: repro_torch.launch.quickstart.main() on the card: five
              schemes, kill/resume bit-identical, bands over 8 realizations;
- 13. serve:  the model zoo's serving path, qwen3-4b at full width (36
+ 13. channel: the main path's deployment under channel profiles: "static"
+             for coded, naive and greedy, bit-identical to the main path's
+             runs; coded, naive, greedy and ideal under drift_churn, 20
+             rounds each, wall clock and returned counts equal to the host
+             replay of the trace and the traced delays, 20
+             linreg_grad_masked launches a run, warm ms per round beside
+             the stationary round's; coded card against CPU for 3 rounds;
+             fused_embed coded (20 rff_linreg_grad_masked launches) and
+             fused_coded=False coded (20 linreg_grad launches) under the
+             channel against the channel coded run; warm runs of the
+             stationary and the channel deployments timed in turns (6
+             pairs each of coded, naive, greedy: the traced round's host
+             cost), each beside its device time a round (torch.profiler);
+             run_multi(20, 4) of
+             coded and naive against the host replay (one trace stream a
+             realization);
+ 14. adaptive: adaptive_coded under degrade_drift, adapt_every 5,
+             checkpoint_every 5, 20 rounds: re-plan times (3, on the
+             scalar solver), ms per round without them and of the round
+             loop alone (replayed from the schedule: the same theta bits),
+             beside the stationary coded round; the schedule bit-identical
+             to a CPU run of the same spec and theta within tolerance;
+             killed after one block and resumed in a fresh experiment,
+             bit-identical (theta, rounds, schedule); adaptive_greedy under
+             churn, card against CPU; adaptive_coded at n = 100 (l = 120),
+             auto re-planning on the vectorized solver on the card;
+             repro_torch.launch.adaptive_drift.main() (120 launches, the
+             adaptive run sooner to the target);
+ 15. serve:  the model zoo's serving path, qwen3-4b at full width (36
              layers, d_model 2560, bf16) from seeded random weights: 8
              requests of 4096-token prompts (make_batch), 64 greedy tokens
              each (max_seq 4160, window 0) through
@@ -57,13 +85,13 @@ Phases, each printed as one JSON object per line:
              its byte bound, tokens/s; then torch.profiler over 4 warm
              decode steps after a second prefill: device busy and idle
              share of a step, the top kernels, and gqa_decode's share;
- 14. serve_check: full width at 4 layers, float32: the last decode step's
+ 16. serve_check: full width at 4 layers, float32: the last decode step's
              logits against the last-position logits of a prefill over
              prompt + generated tokens, at window 0 and at window 1024 over
              a 4096-token prompt (a rolling cache);
- 15. serve_cpu: the qwen3-4b smoke variant served on the card and on the
+ 17. serve_cpu: the qwen3-4b smoke variant served on the card and on the
              CPU (plain versions): identical tokens, logits within tolerance;
- 16. kernel: each kernel against its plain PyTorch version on the card, at
+ 18. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
              tile multiple; times with CUDA events.  linreg_grad_masked at
@@ -95,7 +123,7 @@ Phases, each printed as one JSON object per line:
              by events, on the device (device_ms, library_device_ms) and on
              the host (host_ms: the wrapper's enqueue), beside SDPA with its
              mask made once outside the timed calls;
- 17. the kernels table, then the final line
+ 19. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -105,6 +133,7 @@ table is the sum over the path phases.
 Any failure raises and the script exits non-zero without the final line.
 It exits 2 at once where there is no CUDA device or no src/repro_torch.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -125,6 +154,11 @@ CPU_ROUNDS = 3
 RESUME_EVERY = 5          # the resume phase's checkpoint_every
 MULTI_R = 8               # the multi phase's realizations
 ALLOC_CLIENTS = 100       # where auto picks the vectorized allocator
+CHANNEL = "drift_churn"   # the channel phase's profile
+CHANNEL_MULTI_R = 4       # its run_multi realizations
+HOST_COST_PAIRS = 6       # stationary/channel warm runs timed in turns
+ADAPT_PROFILE = "degrade_drift"   # the adaptive phase's profile
+ADAPT_EVERY = 5
 # the resume phase's checkpoints, under the git-ignored build/
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 PEAK_FLOPS = 67e12        # H100 SXM float32, outside the tensor cores
@@ -421,7 +455,7 @@ def main_path(torch, dev):
     return dict(spec=dataclasses.replace(base, scheme="coded"), xs=xs, ys=ys,
                 x_tr=x_tr, omega=omega, delta=delta, coded=results["coded"],
                 g_stack=g_stack, results=results, ds=ds, nodes=nodes,
-                launches=main_launches)
+                launches=main_launches, warm=warm)
 
 
 def cpu_twin(torch, dev, state) -> None:
@@ -568,6 +602,7 @@ def fused_embed_path(torch, dev, state) -> None:
     check(peak < phi_bytes / 10, f"fused coded round allocated {peak} bytes "
           f"beyond its consts; one (rows, L, q) tensor is {phi_bytes}")
     state["fused"] = (exp, res)
+    state["xs_raw"] = xs_raw
 
 
 def unfused_path(torch, dev, state) -> None:
@@ -867,6 +902,7 @@ def alloc_path(torch, dev, state) -> None:
     xs = np.stack([cl[0] for cl in per_client])
     ys = np.stack([ds.one_hot(cl[1]) for cl in per_client])
     spec = dataclasses.replace(state["spec"], fl=fl)
+    state["alloc"] = (spec, xs, ys)
     t0 = time.perf_counter()
     exp = build_experiment(spec, xs, ys, device=dev)
     torch.cuda.synchronize()
@@ -962,6 +998,498 @@ def quickstart_path(torch, dev, state) -> None:
           f"{launches['linreg_grad_masked']} times, expected {want}")
     check(all(math.isfinite(v["accuracy"]) and v["accuracy"] > 0.5
               for v in table.values()), "quickstart: accuracy")
+
+
+def _replay_channel(exp, rng, trace_call: int, rounds: int):
+    """(wall clock (rounds,), returned (rounds,)) of a traced run of
+    `exp` (naive, greedy, coded or ideal), replayed on the host: the trace
+    of stream `trace_call`, the traced delays drawn from `rng` (advanced),
+    float32 deadlines as the round step takes them."""
+    from repro_torch.net.trace import (TraceState, generate_trace_block,
+                                       sample_round_times_traced)
+
+    trace, _ = generate_trace_block(
+        exp.nodes, exp.channel, rounds,
+        TraceState.init(exp.n, exp._trace_rng(trace_call)))
+    times = sample_round_times_traced(
+        exp.nodes, np.asarray(exp.loads, float), rng, trace).astype(
+            np.float32)
+    active = trace.active
+    zero = np.float32(0.0)
+    if exp.step_kind == "coded":
+        t_round = np.full(rounds, np.float32(exp.t_star))
+        returned = ((times <= t_round[:, None]) & active).sum(1)
+    elif exp.step_kind == "naive":
+        t_round = np.where(active, times, zero).max(1)
+        returned = active.sum(1)
+    elif exp.step_kind == "greedy":
+        srt = np.sort(np.where(active, times, np.float32(np.inf)), axis=1)
+        n_act = active.sum(1)
+        k = np.clip(np.minimum(exp.n_wait, n_act), 1, exp.n)
+        t_round = np.where(n_act > 0, srt[np.arange(rounds), k - 1], zero)
+        returned = ((times <= t_round[:, None]) & active).sum(1)
+    else:                                                   # ideal
+        t_round = np.full(rounds, np.float32(exp.t_ideal))
+        returned = active.sum(1)
+    wall = exp.setup_time + np.cumsum(t_round.astype(np.float64))
+    return wall, returned
+
+
+def _host_rng(exp):
+    rng = np.random.default_rng()
+    rng.bit_generator.state = exp.rng.bit_generator.state
+    return rng
+
+
+def channel_path(torch, dev, state) -> None:
+    """The main path's deployments under the CHANNEL profile: static
+    against the main path's runs, coded/naive/greedy/ideal against the
+    host replay of the trace, coded card against CPU, fused_embed and
+    fused_coded=False under the channel, and run_multi."""
+    from repro_torch.api import build_experiment
+    from repro_torch.kernels import ops
+
+    base = state["spec"]
+    # 1. the static profile is the main path's run, bit for bit
+    static = {}
+    for scheme in ("coded", "naive", "greedy"):
+        ops.reset_launch_counts()
+        exp = build_experiment(
+            dataclasses.replace(base, scheme=scheme,
+                                channel_profile="static"),
+            state["xs"], state["ys"], device=dev)
+        res = exp.run(ROUNDS)
+        launches = dict(ops.LAUNCHES)
+        add_launches(state, launches)
+        want = state["results"][scheme][1]
+        same = (bool(torch.equal(res.theta, want.theta))
+                and [h.wall_clock for h in res.history]
+                == [h.wall_clock for h in want.history]
+                and [h.returned for h in res.history]
+                == [h.returned for h in want.history])
+        static[scheme] = same
+        check(same, f"channel static {scheme}: differs from the main "
+              "path's run")
+        check(launches["linreg_grad_masked"] == ROUNDS,
+              f"channel static {scheme}: linreg_grad_masked launched "
+              f"{launches['linreg_grad_masked']} times")
+    emit({"phase": "channel", "profile": "static",
+          "identical_to_main_path": static})
+
+    # 2. the four schemes under the channel, against the host replay
+    spec = dataclasses.replace(base, channel_profile=CHANNEL)
+    runs = {}
+    for scheme in ("coded", "naive", "greedy", "ideal"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        exp = build_experiment(dataclasses.replace(spec, scheme=scheme),
+                               state["xs"], state["ys"], device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        wall, returned = _replay_channel(exp, _host_rng(exp),
+                                         exp._trace_calls, ROUNDS)
+        t0 = time.perf_counter()
+        res = exp.run(ROUNDS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        add_launches(state, launches)
+        same_wall = (np.array([h.wall_clock for h in res.history]).tolist()
+                     == wall.tolist())
+        same_ret = [h.returned for h in res.history] == returned.tolist()
+        finite = bool(torch.isfinite(res.theta).all())
+        emit({"phase": "channel", "profile": CHANNEL, "scheme": scheme,
+              "rounds": ROUNDS, "setup_s": setup_s,
+              "ms_per_round": run_s / ROUNDS * 1e3,
+              "warm_ms_per_round": warm_ms(torch, exp),
+              "stationary_warm_ms_per_round":
+                  state["warm"].get(scheme),
+              "returned": [h.returned for h in res.history],
+              "wall_clock": res.history[-1].wall_clock,
+              "wall_clock_replayed": same_wall,
+              "returned_replayed": same_ret, "launches": launches,
+              "theta_finite": finite})
+        check(same_wall and same_ret, f"channel {scheme}: wall clock or "
+              "returned counts differ from the host replay of the trace")
+        check(launches["linreg_grad_masked"] == ROUNDS,
+              f"channel {scheme}: linreg_grad_masked launched "
+              f"{launches['linreg_grad_masked']} times in {ROUNDS} rounds")
+        check(finite, f"channel {scheme}: theta is not finite")
+        runs[scheme] = (exp, res)
+
+    # the traced round's host cost: warm runs of the stationary and the
+    # channel deployment in turns (stationary, channel, channel,
+    # stationary, ...), ms per round
+    turns = {}
+    for scheme in ("coded", "naive", "greedy"):
+        pair = {"stationary": state["results"][scheme][0],
+                "channel": runs[scheme][0]}
+        ms = {"stationary": [], "channel": []}
+        for i in range(HOST_COST_PAIRS):
+            order = ("stationary", "channel") if i % 2 == 0 else (
+                "channel", "stationary")
+            for name in order:
+                ms[name].append(warm_ms(torch, pair[name]))
+        turns[scheme] = {
+            name: {"ms": v, "median": float(np.median(v)),
+                   # the card's busy time a round (torch.profiler over two
+                   # warm runs): what the host leaves idle is the rest
+                   "device_ms_per_round": device_ms(
+                       torch, lambda: pair[name].run(ROUNDS), 2) / ROUNDS}
+            for name, v in ms.items()}
+    emit({"phase": "channel", "profile": CHANNEL,
+          "warm_ms_per_round_in_turns": turns})
+
+    # 3. coded, card against CPU
+    coded_spec = dataclasses.replace(spec, scheme="coded")
+    gpu = build_experiment(coded_spec, state["xs"], state["ys"],
+                           device=dev).run(CPU_ROUNDS)
+    cpu = build_experiment(coded_spec, state["xs"], state["ys"],
+                           device="cpu").run(CPU_ROUNDS)
+    th_gpu, th_cpu = gpu.theta.cpu(), cpu.theta
+    err = float((th_gpu - th_cpu).abs().max())
+    tol = THETA_REL_TOL * max(1.0, float(th_cpu.abs().max()))
+    same = ([h.wall_clock for h in gpu.history]
+            == [h.wall_clock for h in cpu.history]
+            and [h.returned for h in gpu.history]
+            == [h.returned for h in cpu.history])
+    emit({"phase": "channel", "profile": CHANNEL, "scheme": "coded",
+          "cpu_rounds": CPU_ROUNDS, "theta_max_abs_err": err, "tol": tol,
+          "wall_clock_and_returned_identical": same})
+    check(same, "channel coded: card and CPU runs saw other rounds")
+    check(err <= tol, f"channel coded: card theta differs from CPU theta: "
+          f"{err} > {tol}")
+
+    # 4. fused_embed and fused_coded=False under the channel, against the
+    # channel coded run (same trace, same delays, same loads)
+    control = runs["coded"][1]
+    for name, over, xs, kernel in (
+            ("fused_embed", dict(fused_embed=True), state["xs_raw"],
+             "rff_linreg_grad_masked"),
+            ("unfused", dict(fused_coded=False), state["xs"],
+             "linreg_grad")):
+        ops.reset_launch_counts()
+        exp = build_experiment(
+            dataclasses.replace(coded_spec, **over), xs, state["ys"],
+            device=dev, rff_draw=((state["omega"], state["delta"])
+                                  if name == "fused_embed" else None))
+        t0 = time.perf_counter()
+        res = exp.run(ROUNDS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        add_launches(state, launches)
+        err = same_rounds(torch, res, control, f"channel {name}")
+        emit({"phase": "channel", "profile": CHANNEL, "scheme": "coded",
+              "path": name, "rounds": ROUNDS,
+              "ms_per_round": run_s / ROUNDS * 1e3, "launches": launches,
+              "theta_max_abs_err": err})
+        check(launches[kernel] == ROUNDS, f"channel {name}: {kernel} "
+              f"launched {launches[kernel]} times in {ROUNDS} rounds")
+
+    # 5. run_multi under the channel: one trace stream a realization
+    for scheme in ("coded", "naive"):
+        exp = runs[scheme][0]
+        ops.reset_launch_counts()
+        rng, base_call = _host_rng(exp), exp._trace_calls
+        replay = [_replay_channel(exp, rng, base_call + r, ROUNDS)
+                  for r in range(CHANNEL_MULTI_R)]
+        t0 = time.perf_counter()
+        res = exp.run_multi(ROUNDS, CHANNEL_MULTI_R)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        add_launches(state, launches)
+        same_wall = bool(np.array_equal(
+            res.wall_clock, np.stack([w for w, _ in replay])))
+        same_ret = bool(np.array_equal(
+            res.returned, np.stack([r for _, r in replay])))
+        finite = bool(torch.isfinite(res.theta).all())
+        emit({"phase": "channel", "profile": CHANNEL, "scheme": scheme,
+              "run_multi": [ROUNDS, CHANNEL_MULTI_R],
+              "wall_clock_replayed": same_wall,
+              "returned_replayed": same_ret, "seconds": seconds,
+              "ms_per_realization_round":
+                  seconds / (ROUNDS * CHANNEL_MULTI_R) * 1e3,
+              "final_mean": float(res.wall_clock[:, -1].mean()),
+              "launches": launches, "theta_finite": finite})
+        check(same_wall and same_ret, f"channel run_multi {scheme}: wall "
+              "clock or returned counts differ from the host replay")
+        check(finite, f"channel run_multi {scheme}: theta is not finite")
+        check(launches["linreg_grad_masked"] == ROUNDS * CHANNEL_MULTI_R,
+              f"channel run_multi {scheme}: linreg_grad_masked launched "
+              f"{launches['linreg_grad_masked']} times")
+    del runs
+    _release(torch)
+
+
+@contextlib.contextmanager
+def timed_replans(torch, exp, times: list):
+    """Time each re-plan of `exp`'s scheme (seconds, appended to `times`)
+    while the block runs."""
+    scheme = exp.scheme_obj
+    replan = type(scheme).replan
+
+    def timed(exp_, estimator):
+        t0 = time.perf_counter()
+        out = replan(scheme, exp_, estimator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    scheme.replan = timed
+    try:
+        yield times
+    finally:
+        del scheme.replan
+
+
+def same_schedule(torch, got, want) -> bool:
+    """Two AdaptiveSchedules field for field, the masks bit for bit."""
+    for f in ("times", "active", "block_idx", "loads_blocks", "t_star",
+              "n_wait"):
+        g, w = getattr(got, f), getattr(want, f)
+        if (g is None) != (w is None) or (
+                w is not None and not np.array_equal(g, w)):
+            return False
+    for eg, ew in zip(got.estimates, want.estimates):
+        if eg["rounds_seen"] != ew["rounds_seen"] or not all(
+                np.array_equal(eg[k], ew[k])
+                for k in ("mu", "tau", "p", "avail")):
+            return False
+    if (got.gmask_blocks is None) != (want.gmask_blocks is None):
+        return False
+    return (len(got.estimates) == len(want.estimates)
+            and (want.gmask_blocks is None or bool(torch.equal(
+                got.gmask_blocks.cpu(), want.gmask_blocks.cpu()))))
+
+
+def _round_loop_ms(torch, exp, sched, theta_want) -> tuple[float, bool]:
+    """ms per round of the adaptive_coded round loop alone, replayed from
+    the run's schedule (the plan's host work left out), after one warm
+    pass; and whether the replay gives the run's theta bit for bit."""
+    lrs = exp._device(exp._lr_schedule(ROUNDS))
+    consts = dict(exp._get_consts(), gmask_blocks=sched.gmask_blocks)
+    xs = (exp._device(sched.times), lrs, exp._device(sched.active),
+          exp._device(sched.t_star), sched.block_idx.tolist())
+
+    def loop():
+        theta0 = torch.zeros((exp.q, exp.c), device=exp.device)
+        return exp._rounds(theta0, 1.0, xs, consts=consts)[0][0]
+
+    same = bool(torch.equal(loop(), theta_want))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / ROUNDS * 1e3, same
+
+
+def adaptive_path(torch, dev, state) -> None:
+    """adaptive_coded under ADAPT_PROFILE at n = 30 (card against CPU,
+    kill/resume), adaptive_greedy under churn, adaptive_coded at n = 100
+    on the vectorized solver, and repro_torch.launch.adaptive_drift."""
+    import shutil
+
+    from repro_torch.api import build_experiment
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import adaptive_drift
+
+    spec = dataclasses.replace(
+        state["spec"], scheme="adaptive_coded", channel_profile=ADAPT_PROFILE,
+        adapt_every=ADAPT_EVERY, checkpoint_every=RESUME_EVERY)
+    xs, ys = state["xs"], state["ys"]
+    # 1. on the card: re-plan times, rounds, the schedule
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp = build_experiment(spec, xs, ys, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    replans = []
+    t0 = time.perf_counter()
+    with timed_replans(torch, exp, replans):
+        res = exp.run(ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    sched = exp.last_schedule
+    loop_ms, loop_same = _round_loop_ms(torch, exp, sched, res.theta)
+    add_launches(state, dict(ops.LAUNCHES))
+    finite = bool(torch.isfinite(res.theta).all())
+    emit({"phase": "adaptive", "scheme": "adaptive_coded", "clients": exp.n,
+          "profile": ADAPT_PROFILE, "adapt_every": ADAPT_EVERY,
+          "rounds": ROUNDS, "backend": exp._pick_alloc_backend(),
+          "setup_s": setup_s, "replan_s": replans,
+          "ms_per_round_without_replans":
+              (run_s - sum(replans)) / ROUNDS * 1e3,
+          "round_loop_ms_per_round": loop_ms,
+          "round_loop_replay_identical": loop_same,
+          "stationary_coded_warm_ms_per_round": state["warm"]["coded"],
+          "t_star_blocks": [float(t) for t in sched.t_star[::ADAPT_EVERY]],
+          "load_blocks": [float(b.sum()) for b in sched.loads_blocks],
+          "setup_t_star": exp.t_star,
+          "returned": [h.returned for h in res.history],
+          "wall_clock": res.history[-1].wall_clock, "launches": launches,
+          "theta_finite": finite})
+    check(len(replans) == ROUNDS // ADAPT_EVERY - 1,
+          f"adaptive: {len(replans)} re-plans in {ROUNDS} rounds")
+    check(launches["linreg_grad_masked"] == ROUNDS,
+          f"adaptive: linreg_grad_masked launched "
+          f"{launches['linreg_grad_masked']} times in {ROUNDS} rounds")
+    check(launches["parity_encode_batched"] == 2,
+          "adaptive: parity_encode_batched not launched twice")
+    check(finite and loop_same, "adaptive: theta not finite, or the round "
+          "loop replayed from the schedule gives another theta")
+
+    # 2. the same spec on the CPU: the plan is host NumPy, so the schedule
+    # is the same bits; theta within tolerance
+    cpu_exp = build_experiment(spec, xs, ys, device="cpu")
+    cpu_res = cpu_exp.run(ROUNDS)
+    same_sched = same_schedule(torch, sched, cpu_exp.last_schedule)
+    err = float((res.theta.cpu() - cpu_res.theta).abs().max())
+    tol = THETA_REL_TOL * max(1.0, float(cpu_res.theta.abs().max()))
+    same_host = ([h.wall_clock for h in res.history]
+                 == [h.wall_clock for h in cpu_res.history]
+                 and [h.returned for h in res.history]
+                 == [h.returned for h in cpu_res.history])
+    emit({"phase": "adaptive", "scheme": "adaptive_coded",
+          "cpu_schedule_identical": same_sched,
+          "cpu_wall_clock_and_returned_identical": same_host,
+          "theta_max_abs_err": err, "tol": tol})
+    check(same_sched and same_host, "adaptive: the card's schedule or "
+          "rounds differ from the CPU's")
+    check(err <= tol, f"adaptive: card theta differs from CPU theta: "
+          f"{err} > {tol}")
+    del cpu_exp, cpu_res
+
+    # 3. kill after one block, resume in a fresh experiment
+    ckpt_dir = CKPT_DIR / "adaptive"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ops.reset_launch_counts()
+    interrupted = build_experiment(spec, xs, ys, device=dev)
+    first = interrupted.run_block(interrupted.init_state(ROUNDS))
+    path = interrupted.save_state(
+        str(ckpt_dir / f"{ckpt_io.CKPT_PREFIX}{first.rounds_done:06d}.npz"),
+        first)
+    del interrupted, first                               # the kill
+    fresh = build_experiment(spec, xs, ys, device=dev)
+    restored = fresh.restore_state(path)
+    resumed = fresh.run(ROUNDS, checkpoint_dir=str(ckpt_dir), resume=True)
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    same = (bool(torch.equal(resumed.theta, res.theta))
+            and [h.wall_clock for h in resumed.history]
+            == [h.wall_clock for h in res.history]
+            and [h.returned for h in resumed.history]
+            == [h.returned for h in res.history]
+            and same_schedule(torch, fresh.last_schedule, sched))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "adaptive", "scheme": "adaptive_coded",
+          "killed_at": restored.rounds_done, "resume_identical": same,
+          "launches": launches})
+    check(same, "adaptive: the resumed run differs from the uninterrupted "
+          "one")
+    check(launches["linreg_grad_masked"] == ROUNDS,
+          "adaptive: the killed and the resumed run launched "
+          f"linreg_grad_masked {launches['linreg_grad_masked']} times")
+    del fresh, resumed
+
+    # 4. adaptive_greedy under churn, card against CPU
+    g_spec = dataclasses.replace(
+        state["spec"], scheme="adaptive_greedy", channel_profile="churn",
+        adapt_every=ADAPT_EVERY)
+    ops.reset_launch_counts()
+    g_exp = build_experiment(g_spec, xs, ys, device=dev)
+    t0 = time.perf_counter()
+    g_res = g_exp.run(ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    g_cpu = build_experiment(g_spec, xs, ys, device="cpu")
+    g_cpu_res = g_cpu.run(ROUNDS)
+    same_sched = same_schedule(torch, g_exp.last_schedule,
+                               g_cpu.last_schedule)
+    err = float((g_res.theta.cpu() - g_cpu_res.theta).abs().max())
+    tol = THETA_REL_TOL * max(1.0, float(g_cpu_res.theta.abs().max()))
+    emit({"phase": "adaptive", "scheme": "adaptive_greedy",
+          "profile": "churn", "rounds": ROUNDS,
+          "ms_per_round": run_s / ROUNDS * 1e3,
+          "warm_ms_per_round": warm_ms(torch, g_exp),
+          "stationary_greedy_warm_ms_per_round": state["warm"]["greedy"],
+          "n_wait_blocks": [int(k) for k in
+                            g_exp.last_schedule.n_wait[::ADAPT_EVERY]],
+          "returned": [h.returned for h in g_res.history],
+          "cpu_schedule_identical": same_sched,
+          "theta_max_abs_err": err, "tol": tol, "launches": launches})
+    check(launches["linreg_grad_masked"] == ROUNDS,
+          f"adaptive_greedy: linreg_grad_masked launched "
+          f"{launches['linreg_grad_masked']} times in {ROUNDS} rounds")
+    check(same_sched, "adaptive_greedy: the card's schedule differs from "
+          "the CPU's")
+    check(err <= tol, f"adaptive_greedy: card theta differs from CPU "
+          f"theta: {err} > {tol}")
+
+    # 5. adaptive_coded at n = 100: auto re-plans on the vectorized solver
+    a_spec, a_xs, a_ys = state["alloc"]
+    a_spec = dataclasses.replace(
+        a_spec, scheme="adaptive_coded", channel_profile=ADAPT_PROFILE,
+        adapt_every=ADAPT_EVERY)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    big = build_experiment(a_spec, a_xs, a_ys, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    replans = []
+    t0 = time.perf_counter()
+    with timed_replans(torch, big, replans):
+        b_res = big.run(ROUNDS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    b_sched = big.last_schedule
+    finite = bool(torch.isfinite(b_res.theta).all()) and bool(
+        np.isfinite(b_sched.t_star).all() and (b_sched.t_star > 0).all())
+    emit({"phase": "adaptive", "scheme": "adaptive_coded",
+          "clients": big.n, "l": big.l, "u": big.u,
+          "backend": big._pick_alloc_backend(), "setup_s": setup_s,
+          "replan_s": replans,
+          "ms_per_round_without_replans":
+              (run_s - sum(replans)) / ROUNDS * 1e3,
+          "t_star_blocks": [float(t) for t in
+                            b_sched.t_star[::ADAPT_EVERY]],
+          "returned": [h.returned for h in b_res.history],
+          "launches": launches, "finite": finite})
+    check(big._pick_alloc_backend() == "vectorized",
+          "adaptive n = 100: auto did not pick the vectorized solver")
+    check(len(replans) == ROUNDS // ADAPT_EVERY - 1,
+          f"adaptive n = 100: {len(replans)} re-plans")
+    check(launches["linreg_grad_masked"] == ROUNDS,
+          f"adaptive n = 100: linreg_grad_masked launched "
+          f"{launches['linreg_grad_masked']} times in {ROUNDS} rounds")
+    check(finite, "adaptive n = 100: theta or a deadline is not finite")
+    del big, b_res
+
+    # 6. the port of examples/adaptive_drift.py
+    ops.reset_launch_counts()
+    lines = []
+    t0 = time.perf_counter()
+    out = adaptive_drift.main(device=dev, out=lines.append)
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    want = 2 * adaptive_drift.ITERS
+    emit({"phase": "adaptive", "example": "adaptive_drift",
+          "seconds": seconds, "lines": lines[1:],
+          "t_target": out["t_target"], "launches": launches})
+    check(launches["linreg_grad_masked"] == want,
+          f"adaptive_drift: linreg_grad_masked launched "
+          f"{launches['linreg_grad_masked']} times, expected {want}")
+    check(out["t_target"]["adaptive"] < out["t_target"]["static"],
+          "adaptive_drift: the adaptive run is not sooner to the target")
+    _release(torch)
 
 
 def _release(torch) -> None:
@@ -1867,7 +2395,8 @@ def main() -> int:
     emit({"phase": "main", "seconds": time.perf_counter() - t0})
     for phase in (cpu_twin, fused_embed_path, unfused_path, legacy_path,
                   encode_local_path, resume_path, multi_path, alloc_path,
-                  quickstart_path, serve_path, serve_check, serve_cpu):
+                  quickstart_path, channel_path, adaptive_path, serve_path,
+                  serve_check, serve_cpu):
         t0 = time.perf_counter()
         phase(torch, dev, state)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})

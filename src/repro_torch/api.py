@@ -24,12 +24,16 @@ from repro_torch.core.fed_runtime import (Experiment, FedResult,  # noqa: F401
                                           RunHealth)
 from repro_torch.core.run_state import RunState  # noqa: F401
 from repro_torch.core.schemes import (Scheme, get_scheme,  # noqa: F401
-                                      register, registered_names)
+                                      grid_names, register,
+                                      registered_names)
+from repro_torch.net.channel import (CHANNEL_PROFILES,  # noqa: F401
+                                     ChannelProfile)
 
 __all__ = [
     "ExperimentSpec", "Experiment", "FedResult", "MultiFedResult",
     "RoundLog", "RunHealth", "RunState", "Scheme", "build_experiment",
-    "get_scheme", "register", "registered_names",
+    "get_scheme", "grid_names", "register", "registered_names",
+    "CHANNEL_PROFILES", "ChannelProfile",
 ]
 
 def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,

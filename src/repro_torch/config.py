@@ -5,15 +5,17 @@ The same frozen dataclasses as ``repro.config`` (``FLConfig``,
 spec's ``to_dict()`` equals the reference's and a spec the reference wrote
 as JSON revives here with ``ExperimentSpec.from_dict``.
 
-The port runs the stationary flat engine: the batched engine with the
-fused or unfused coded round (``fused_coded``), with raw features embedded
-in the gradient kernel (``fused_embed``), block-structured and
-checkpointed (``checkpoint_every``), and the legacy per-client oracle
+The port runs the flat engine: the batched engine with the fused or
+unfused coded round (``fused_coded``), with raw features embedded in the
+gradient kernel (``fused_embed``), block-structured and checkpointed
+(``checkpoint_every``), over stationary delays or a traced channel
+(``channel_profile``/``channel_params``, `resolved_channel`), with the
+adaptive schemes (``adapt_every``), and the legacy per-client oracle
 (``engine="legacy"``).  A spec may still name a feature the port does not
-have yet (channel dynamics, fault injection, the hierarchical tier, a
-client mesh, secure aggregation, the adaptive schemes):
-the spec holds it so that it round-trips, and ``build_experiment`` raises
-``NotImplementedError`` naming the feature (`unsupported_features`).
+have yet (fault injection, the hierarchical tier, a client mesh, secure
+aggregation): the spec holds it so that it round-trips, and
+``build_experiment`` raises ``NotImplementedError`` naming the feature
+(`unsupported_features`).
 Combinations the reference refuses when a spec is made (``fused_embed``
 with the legacy engine or a mesh, the legacy engine with checkpoints,
 channel dynamics, faults or the hierarchical tier) raise ``ValueError``
@@ -278,15 +280,25 @@ class ExperimentSpec:
             if self.mesh is not None:
                 raise ValueError(
                     "fused_embed does not support client-mesh sharding yet")
-        if self.engine == "legacy":
-            if self.channel_profile is not None or self.channel_params:
+        if self.channel_profile is not None or self.channel_params:
+            from repro_torch.net.channel import CHANNEL_PROFILES
+            name = self.channel_profile
+            if name is not None and name not in CHANNEL_PROFILES:
+                raise ValueError(
+                    f"unknown channel_profile {name!r} "
+                    f"(expected one of {tuple(CHANNEL_PROFILES)})")
+            if self.engine == "legacy":
                 raise ValueError(
                     "channel dynamics require the batched engine; the "
                     "legacy per-client oracle has no traced-delay path")
-            if self.fault_profile is not None or self.fault_params:
-                raise ValueError(
-                    "fault injection requires the batched engine; the "
-                    "legacy per-client oracle has no fault path")
+            # knob names (and values, via construction) validated eagerly
+            # so the error points at the spec
+            self.resolved_channel()
+        if self.engine == "legacy" and (self.fault_profile is not None
+                                        or self.fault_params):
+            raise ValueError(
+                "fault injection requires the batched engine; the "
+                "legacy per-client oracle has no fault path")
         if self.run_id is not None and not (
                 isinstance(self.run_id, str)
                 and re.fullmatch(r"[A-Za-z0-9][A-Za-z0-9._-]{0,127}",
@@ -315,6 +327,15 @@ class ExperimentSpec:
                     f"the hierarchical tier ({hier}) requires the batched "
                     "engine; the legacy per-client oracle has no sharded "
                     "round")
+            if self.channel_profile is not None or self.channel_params:
+                raise ValueError(
+                    f"the hierarchical tier ({hier}) has no traced-channel "
+                    "path yet; drop channel_profile/channel_params")
+            if self.adapt_every > 0:
+                raise ValueError(
+                    f"the hierarchical tier ({hier}) runs the static coded "
+                    "round per shard; adaptive re-allocation "
+                    f"(adapt_every={self.adapt_every}) is not supported")
             if self.fused_embed:
                 raise ValueError(
                     f"the hierarchical tier ({hier}) consumes embedded "
@@ -332,6 +353,27 @@ class ExperimentSpec:
     @property
     def scheme_params_dict(self) -> dict:
         return dict(self.scheme_params)
+
+    @property
+    def channel_params_dict(self) -> dict:
+        return dict(self.channel_params)
+
+    def resolved_channel(self):
+        """The effective `ChannelProfile`, or None when no dynamics are
+        requested.  ``channel_params`` override the named profile's knobs
+        (base profile "static" when only overrides are given)."""
+        if self.channel_profile is None and not self.channel_params:
+            return None
+        from repro_torch.net.channel import CHANNEL_PROFILES
+        base = CHANNEL_PROFILES[self.channel_profile or "static"]
+        if not self.channel_params:
+            return base
+        try:
+            return dataclasses.replace(base, **self.channel_params_dict)
+        except TypeError as exc:
+            knobs = tuple(f.name for f in dataclasses.fields(base))
+            raise ValueError(f"bad channel_params: {exc} "
+                             f"(valid knobs: {knobs})") from None
 
     def resolved_fl(self) -> FLConfig:
         """`fl` with the named delay profile's knobs applied."""
@@ -375,11 +417,6 @@ class ExperimentSpec:
 def unsupported_features(spec: ExperimentSpec) -> list[str]:
     """Names of the features `spec` asks for that the port lacks."""
     checks = (
-        (spec.channel_profile is not None or bool(spec.channel_params),
-         "channel dynamics (channel_profile/channel_params)"),
-        (spec.adapt_every > 0, "adaptive re-allocation (adapt_every)"),
-        (spec.resolved_scheme in ("adaptive_coded", "adaptive_greedy"),
-         f"the adaptive scheme {spec.resolved_scheme!r}"),
         (spec.fault_profile is not None or bool(spec.fault_params),
          "fault injection (fault_profile/fault_params)"),
         (spec.hier_active,

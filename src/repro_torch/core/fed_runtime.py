@@ -1,12 +1,13 @@
-"""Federated-learning runtime of the port: the flat engine, stationary delays.
+"""Federated-learning runtime of the port: the flat engine on one device.
 
-The counterpart of ``repro.core.fed_runtime`` for stationary delays and one
-device.  The batched engine (``engine="batched"``) runs the fused coded
-round (``fused_coded=True``: the parity set is one more row of the round's
-single gradient launch) or the unfused one (``fused_coded=False``: a
-separate ``linreg_grad`` launch over the parity set, guarded), over
-embedded client features or, with ``fused_embed=True``, over RAW ones that
-the ``rff_linreg_grad_masked`` kernel embeds tile by tile every round:
+The counterpart of ``repro.core.fed_runtime`` without faults, the
+hierarchical tier or a client mesh.  The batched engine
+(``engine="batched"``) runs the fused coded round (``fused_coded=True``:
+the parity set is one more row of the round's single gradient launch) or
+the unfused one (``fused_coded=False``: a separate ``linreg_grad``
+launch over the parity set, guarded), over embedded client features or,
+with ``fused_embed=True``, over RAW ones that the
+``rff_linreg_grad_masked`` kernel embeds tile by tile every round:
 
   * the scheme's setup runs on the host (allocation, subsets, weights) and
     on the device (parity encode, dense client tensors);
@@ -29,6 +30,20 @@ the ``rff_linreg_grad_masked`` kernel embeds tile by tile every round:
     reference's vmapped scan takes them, and runs the realizations one
     after another through the same step (``MultiFedResult``, the Fig. 4/5
     confidence bands).
+
+Network dynamics (``spec.channel_profile``, ``repro_torch.net``): a block's
+delays are drawn *through* a deterministic per-seed channel trace
+(Gilbert–Elliott erasure bursts, shadowing and MCS rate hopping, compute
+drift, churn), chained across blocks by the state's `TraceState`, and the
+round takes a per-round availability row.  The static profile reproduces
+the stationary run bit for bit.  The adaptive schemes (``adaptive_coded``,
+``adaptive_greedy``) plan each block on the host first
+(`repro_torch.net.estimator.plan_segment`: online (mu, tau, p) estimation
+from round telemetry, the allocation re-solved every ``adapt_every``
+rounds); the plan's per-round arrays go to the device once a block, and
+adaptive_coded's per-sub-block load masks are one stacked tensor that the
+round indexes, so no round syncs with the host.  ``run_multi`` under a
+channel runs one whole realization a block, each with its own trace.
 
 ``engine="legacy"`` is the reference's per-client oracle: a host loop with
 no guards and no run state, one ``linreg_grad`` launch per returned loaded
@@ -66,6 +81,11 @@ from repro_torch.core.load_allocation import vectorized_grid_width
 from repro_torch.core.run_state import RunState, pack_state, unpack_state
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.net.channel import CHANNEL_PROFILES
+from repro_torch.net.estimator import (AdaptiveSchedule,
+                                       OnlineChannelEstimator, plan_segment)
+from repro_torch.net.trace import (TraceState, generate_trace_block,
+                                   sample_round_times_traced)
 
 #: divergence-guard learning-rate backoff per skipped round
 LR_BACKOFF = 0.5
@@ -144,21 +164,43 @@ def guard_and_sum(g, ret, guard: bool):
     return aggregation.masked_gradient_sum(g, ret), n_masked
 
 
+def _kth_present(t_row, active, k, n: int):
+    """The k-th fastest delay among the clients present (0 when none is):
+    the channel greedy deadline, k clipped to [1, min(k, present)].  The
+    count and the index stay on the device (a gather, no host sync)."""
+    srt = torch.sort(torch.where(active > 0, t_row, math.inf)).values
+    n_act = active.sum().to(torch.int32)
+    k_eff = torch.clamp(torch.clamp(n_act, max=k), 1, n)
+    kth = srt.gather(0, (k_eff - 1).to(torch.int64).reshape(1))[0]
+    return torch.where(n_act > 0, kth, 0.0)
+
+
 def build_step(static: dict):
     """One round ``step(consts, carry, inp) -> (carry, out)``.
 
     `static`: scheme (step kind), n, n_wait, l2, m, l, guard, fused,
-    fused_embed.
+    fused_embed, channel.
     `consts`: gx (rows, L, q), gy (rows, L, c), gmask (rows, L), ret_tail
     (rows - n,); coded adds t_star () and active (n,) and, when unfused,
     par_x (u, q) / par_y (u, c), and when fused live_rows (l_max, u), the
     rows of the client rows and of the parity row that are not zero
-    padding; ideal adds t_ideal ().  With fused_embed gx is the raw
-    (n, L, d) tensor, and omega (d, q), delta (q,) and, on the fused coded
-    round, pphi (L, q) come along.
+    padding; ideal adds t_ideal ().  adaptive_coded adds gmask_blocks
+    (B, rows, L), one mask a sub-block of the plan, and its live_rows are
+    (l, u): its client rows hold every point in priority order.  With
+    fused_embed gx is the raw (n, L, d) tensor, and omega (d, q), delta
+    (q,) and, on the fused coded round, pphi (L, q) come along.
     ``carry`` is ``(theta, lr_scale)``; ``inp`` is ``(t_row, lr)``, the
-    round's float32 delays (n,) and learning rate.  ``out`` is
-    ``(t_round, n_ret, n_masked, skipped)``, 0-dim tensors.
+    round's float32 delays (n,) and learning rate.  With ``channel`` (a
+    network trace drives the run) it grows the round's float32
+    availability row: ``(t_row, lr, active)``; churned-out clients never
+    count as returned, and the naive/greedy deadlines range over the
+    clients present.  adaptive_coded takes ``(t_row, lr, active, t_star_r,
+    block)``: the sub-block's float32 deadline and the host int that picks
+    its mask; adaptive_greedy ``(t_row, lr, active, n_wait_r)``, the
+    sub-block's wait count as a host int.  Under the static profile
+    `active` is all ones and every extra operation is an IEEE no-op, so
+    the trajectory is the stationary one bit for bit.
+    ``out`` is ``(t_round, n_ret, n_masked, skipped)``, 0-dim tensors.
     """
     scheme = static["scheme"]
     n = static["n"]
@@ -169,32 +211,63 @@ def build_step(static: dict):
     guard = static["guard"]
     fused = static["fused"]
     fused_embed = static["fused_embed"]
+    channel = static["channel"]
 
     def step(consts, carry, inp):
         theta, lr_scale = carry
-        t_row, lr = inp
+        gmask = consts["gmask"]
+        if scheme == "adaptive_coded":
+            t_row, lr, active, t_star_r, block = inp
+        elif scheme == "adaptive_greedy":
+            t_row, lr, active, n_wait_r = inp
+        elif channel:
+            t_row, lr, active = inp
+        else:
+            t_row, lr = inp
         if scheme == "naive":
-            n_ret = torch.full((), n, dtype=torch.int32, device=t_row.device)
-            t_round = t_row.max()
-            ret_real = torch.ones_like(t_row)
+            if channel:
+                ret_real = active
+                n_ret = active.sum().to(torch.int32)
+                t_round = torch.where(active > 0, t_row, 0.0).max()
+            else:
+                n_ret = torch.full((), n, dtype=torch.int32,
+                                   device=t_row.device)
+                t_round = t_row.max()
+                ret_real = torch.ones_like(t_row)
             denom = m
-        elif scheme == "greedy":
-            t_round = torch.sort(t_row).values[n_wait - 1]
+        elif scheme in ("greedy", "adaptive_greedy"):
+            if scheme == "adaptive_greedy":
+                t_round = _kth_present(t_row, active, n_wait_r, n)
+            elif channel:
+                t_round = _kth_present(t_row, active, n_wait, n)
+            else:
+                t_round = torch.sort(t_row).values[n_wait - 1]
             ret_real = (t_row <= t_round).to(t_row.dtype)
+            if channel:
+                ret_real = ret_real * active
             n_ret = ret_real.sum().to(torch.int32)
             denom = n_ret.clamp(min=1).to(torch.float32) * l
         elif scheme == "coded":
             t_round = consts["t_star"]
             by_deadline = (t_row <= t_round).to(t_row.dtype)
             ret_real = by_deadline * consts["active"]
+            if channel:
+                by_deadline = by_deadline * active
+                ret_real = ret_real * active
             n_ret = by_deadline.sum().to(torch.int32)
             denom = m
         elif scheme == "ideal":
             # deterministic no-straggler floor: all clients, full load,
             # fixed round clock (the sampled t_row is ignored)
             t_round = consts["t_ideal"]
-            ret_real = torch.ones_like(t_row)
+            ret_real = active if channel else torch.ones_like(t_row)
             n_ret = ret_real.sum().to(torch.int32)
+            denom = m
+        elif scheme == "adaptive_coded":
+            t_round = t_star_r
+            ret_real = (t_row <= t_star_r).to(t_row.dtype) * active
+            n_ret = ret_real.sum().to(torch.int32)
+            gmask = consts["gmask_blocks"][block]
             denom = m
         else:
             raise ValueError(scheme)
@@ -204,11 +277,11 @@ def build_step(static: dict):
         if fused_embed:
             g = aggregation.fused_embed_client_gradients(
                 consts["gx"], consts["gy"], consts["omega"], consts["delta"],
-                theta, mask=consts["gmask"], parity_phi=consts.get("pphi"),
+                theta, mask=gmask, parity_phi=consts.get("pphi"),
                 live_rows=consts.get("live_rows"))
         else:
             g = aggregation.batched_client_gradients(
-                consts["gx"], consts["gy"], theta, mask=consts["gmask"],
+                consts["gx"], consts["gy"], theta, mask=gmask,
                 live_rows=consts.get("live_rows"))
         g_sum, n_masked = guard_and_sum(g, ret, guard)
         if scheme == "coded" and not fused:
@@ -229,6 +302,45 @@ def build_step(static: dict):
         return (theta_new, lr_scale_new), (t_round, n_ret, n_masked, skipped)
 
     return step
+
+
+def _empty_sched(n: int) -> dict:
+    """Zero-length adaptive-schedule record (the keys of
+    `repro_torch.core.run_state.SCHED_KEYS`); blocks append to it with
+    `_append_sched`, `Experiment._assemble_schedule` turns the finished
+    record into an `AdaptiveSchedule`."""
+    return {
+        "times": np.zeros((0, n), np.float64),
+        "active": np.zeros((0, n), np.float32),
+        "block_idx": np.zeros(0, np.int32),
+        "t_star_r": np.zeros(0, np.float32),
+        "n_wait_r": np.zeros(0, np.int32),
+        "loads_blocks": np.zeros((0, n), np.float64),
+        "est_mu": np.zeros((0, n), np.float64),
+        "est_tau": np.zeros((0, n), np.float64),
+        "est_p": np.zeros((0, n), np.float64),
+        "est_avail": np.zeros((0, n), np.float64),
+        "est_rounds_seen": np.zeros(0, np.int64),
+    }
+
+
+def _append_sched(sched: dict, seg) -> dict:
+    """Append one `SegmentPlan`'s record to a schedule dict, offsetting
+    the segment-local block indices onto the run-global block axis."""
+    b0 = sched["loads_blocks"].shape[0]
+    est = seg.estimates
+    out = {
+        "times": seg.times, "active": seg.active,
+        "block_idx": (seg.block_idx + b0).astype(np.int32),
+        "t_star_r": seg.t_star_r, "n_wait_r": seg.n_wait_r,
+        "loads_blocks": seg.loads_blocks,
+        "est_rounds_seen": np.array([e["rounds_seen"] for e in est],
+                                    np.int64),
+    }
+    for key in ("mu", "tau", "p", "avail"):
+        out[f"est_{key}"] = np.stack([e[key] for e in est])
+    return {key: np.concatenate([sched[key], val])
+            for key, val in out.items()}
 
 
 class Experiment:
@@ -275,6 +387,41 @@ class Experiment:
         self.scheme_obj = schemes.get_scheme(self.scheme)
         self.step_kind = self.scheme_obj.step_kind
         self.scheme_params = spec.scheme_params_dict
+        # network dynamics (repro_torch.net): channel trace + adaptation
+        self.channel = spec.resolved_channel()
+        self.adapt_every = spec.adapt_every
+        self.adaptive = self.step_kind.startswith("adaptive")
+        if self.adaptive:
+            if self.engine == "legacy":
+                raise ValueError(
+                    f"scheme {self.scheme!r} needs the batched engine "
+                    "(the legacy oracle has no adaptive schedule path)")
+            if self.adapt_every < 1:
+                raise ValueError(
+                    f"scheme {self.scheme!r} requires "
+                    "ExperimentSpec.adapt_every >= 1 (the re-allocation "
+                    "period in rounds)")
+            if self.channel is None:
+                # adaptation without declared dynamics runs on the exact
+                # static profile
+                self.channel = CHANNEL_PROFILES["static"]
+        if (self.checkpoint_every > 0 and self.adaptive
+                and self.checkpoint_every % self.adapt_every != 0):
+            raise ValueError(
+                f"checkpoint_every={self.checkpoint_every} must be a "
+                f"multiple of adapt_every={self.adapt_every} so checkpoint "
+                "boundaries align with re-allocation blocks")
+        if self.fused_embed and self.adaptive:
+            raise NotImplementedError(
+                f"scheme {self.scheme!r} does not support fused_embed yet "
+                "(adaptive re-allocation assumes embedded tensors)")
+        self._trace_seed = fl_cfg.seed + 9973
+        # trace-stream reservation cursor: a single run reserves one stream
+        # index, a traced run_multi one per realization.  The reserved
+        # index lives in the run's RunState, so replaying a restored state
+        # is hermetic; this counter only hands fresh streams to NEW runs
+        self._trace_calls = 0
+        self.last_schedule = None     # AdaptiveSchedule of the latest run
         self.fl = fl_cfg
         self.train = spec.train
         self.x = torch.as_tensor(x_stack, dtype=torch.float32,
@@ -385,7 +532,35 @@ class Experiment:
             "guard": self.nonfinite_guard,
             "fused": self.fused_coded,
             "fused_embed": self.fused_embed,
+            "channel": self.channel is not None,
         }
+
+    def scheme_params_estimator_kwargs(self) -> dict:
+        """Estimator knobs riding in `scheme_params` (adaptive family)."""
+        kw = {}
+        if "est_beta" in self.scheme_params:
+            kw["beta"] = float(self.scheme_params["est_beta"])
+        if "est_window" in self.scheme_params:
+            kw["window"] = int(self.scheme_params["est_window"])
+        return kw
+
+    def _estimator(self) -> OnlineChannelEstimator:
+        """A fresh estimator at the nominal network, with the spec's knobs."""
+        return OnlineChannelEstimator(
+            self.nodes, **self.scheme_params_estimator_kwargs())
+
+    def _reserve_trace_streams(self, k: int) -> int:
+        """Reserve `k` consecutive trace-stream indices for a new run and
+        return the base index (kept in the run's `RunState`)."""
+        base = self._trace_calls
+        self._trace_calls += k
+        return base
+
+    def _trace_rng(self, index: int) -> np.random.Generator:
+        """Dedicated per-run trace generator, deterministic per (seed,
+        stream index) and independent of `self.rng`, so turning the
+        channel on never shifts the delay draws."""
+        return np.random.default_rng((self._trace_seed, int(index)))
 
     def _lr(self, epoch: int) -> float:
         lr = self.train.learning_rate
@@ -415,19 +590,23 @@ class Experiment:
             self._step = build_step(self.step_static())
         return self._step
 
-    def _rounds(self, theta, lr_scale, times, lrs, eval_at=None):
+    def _rounds(self, theta, lr_scale, xs, eval_at=None, consts=None):
         """The reference's ``lax.scan`` as a Python loop: one `build_step`
         step a round from the carry (theta, lr_scale), on the device.
-        `times` (K, n) float32 delays and `lrs` (K,) on the device;
-        ``eval_at(k, theta)`` sees each round's new iterate.  Returns the
-        final carry and the (K,) per-round columns (t_round, n_ret,
-        n_masked, skipped), still on the device."""
-        consts, step = self._get_consts(), self._get_step()
+        `xs` holds the step's per-round inputs (see `build_step`), each a
+        (K, ...) tensor on the device or a host list: round k's ``inp`` is
+        ``tuple(col[k] for col in xs)``.  `consts` defaults to the
+        deployment's.  ``eval_at(k, theta)`` sees each round's new iterate.
+        Returns the final carry and the (K,) per-round columns (t_round,
+        n_ret, n_masked, skipped), still on the device."""
+        if consts is None:
+            consts = self._get_consts()
+        step = self._get_step()
         carry = (theta, torch.tensor(float(lr_scale), dtype=torch.float32,
                                      device=self.device))
         outs = []
-        for k in range(times.shape[0]):
-            carry, out = step(consts, carry, (times[k], lrs[k]))
+        for k in range(len(xs[0])):
+            carry, out = step(consts, carry, tuple(col[k] for col in xs))
             outs.append(out)
             if eval_at is not None:
                 eval_at(k, carry[0])
@@ -438,10 +617,12 @@ class Experiment:
                    collect: bool = False) -> RunState:
         """Fresh `RunState` for a run of `iterations` rounds.
 
-        ``n_realizations=None`` starts a "single" run, otherwise a
-        "multi" one (blocks advance all realizations' cursors together).
-        The state is seeded from this experiment's live RNG, so runs
-        launched back to back consume disjoint draws.
+        ``n_realizations=None`` starts a "single" run; otherwise a "multi"
+        run (stationary: blocks advance all realizations' cursors together)
+        or a "multi_channel" one (traced: a block is one whole realization,
+        each with its own trace stream).  The state is seeded from this
+        experiment's live RNG and the run's trace streams are reserved
+        here, so runs launched back to back consume disjoint draws.
         """
         iterations = int(iterations)
         if iterations < 1:
@@ -452,8 +633,25 @@ class Experiment:
             R = int(n_realizations)
             if R < 1:
                 raise ValueError(f"n_realizations={R} must be >= 1")
-            mode, lead, lr_scale = "multi", (R,), np.ones(R, np.float64)
+            mode = "multi_channel" if self.channel is not None else "multi"
+            lead, lr_scale = (R,), np.ones(R, np.float64)
             collect = False
+        trace_call = -1
+        trace = est = controls = sched = None
+        if self.channel is not None:
+            if mode == "single":
+                trace_call = self._reserve_trace_streams(1)
+                trace = TraceState.init(self.n, self._trace_rng(trace_call))
+                if self.adaptive:
+                    est = self._estimator().state_dict()
+                    controls = self.scheme_obj.initial_controls(self)
+                    sched = _empty_sched(self.n)
+            else:
+                # one stream per realization; a block IS one realization,
+                # so its estimator and controls never live in the state
+                trace_call = self._reserve_trace_streams(R)
+        # a multi_channel run's accumulators grow a row a realization
+        acc = (0, iterations) if mode == "multi_channel" else lead + (0,)
         losses = accs = None
         if collect:
             losses = np.zeros(0, np.float64)
@@ -463,13 +661,13 @@ class Experiment:
             realizations_done=0, n_realizations=R, collect=bool(collect),
             theta=torch.zeros(lead + (self.q, self.c), dtype=torch.float32,
                               device=self.device),
-            rng_state=self.rng.bit_generator.state, trace_call=-1,
-            trace=None, est=None, controls=None,
-            t_rounds=np.zeros(lead + (0,), np.float64),
-            n_ret=np.zeros(lead + (0,), np.int32), losses=losses, accs=accs,
-            sched=None, lr_scale=lr_scale,
-            n_masked=np.zeros(lead + (0,), np.int64),
-            skipped=np.zeros(lead + (0,), np.int64))
+            rng_state=self.rng.bit_generator.state, trace_call=trace_call,
+            trace=trace, est=est, controls=controls,
+            t_rounds=np.zeros(acc, np.float64),
+            n_ret=np.zeros(acc, np.int32), losses=losses, accs=accs,
+            sched=sched, lr_scale=lr_scale,
+            n_masked=np.zeros(acc, np.int64),
+            skipped=np.zeros(acc, np.int64))
 
     def run_block(self, state: RunState, n_rounds: Optional[int] = None, *,
                   eval_fn: Optional[Callable] = None,
@@ -479,13 +677,11 @@ class Experiment:
         always safe).
 
         ``n_rounds`` defaults to ``spec.checkpoint_every``, or the whole
-        remaining horizon when that is 0.  A "single" run initialized with
-        ``collect=True`` must be given its ``eval_fn`` on every block.
+        remaining horizon when that is 0.  "multi_channel" runs advance
+        exactly one full realization per block regardless of ``n_rounds``.
+        A "single" run initialized with ``collect=True`` must be given its
+        ``eval_fn`` on every block.
         """
-        if state.mode == "multi_channel":
-            raise NotImplementedError(
-                "the PyTorch port does not support channel dynamics yet "
-                "(a 'multi_channel' run)")
         if state.mode == "hier":
             raise NotImplementedError(
                 "the PyTorch port does not support the hierarchical tier "
@@ -494,6 +690,11 @@ class Experiment:
             raise ValueError(
                 "run is already complete "
                 f"({state.rounds_done}/{state.iterations} rounds)")
+        if (state.mode == "multi_channel") != (
+                state.mode != "single" and self.channel is not None):
+            raise ValueError(
+                f"a {state.mode!r} run does not belong to this experiment "
+                f"(channel {'on' if self.channel is not None else 'off'})")
         if state.mode == "single":
             if state.collect and eval_fn is None:
                 raise ValueError("state was initialized with collect=True; "
@@ -506,28 +707,80 @@ class Experiment:
         # in this Experiment, so replaying a restored block is hermetic
         rng = np.random.default_rng()
         rng.bit_generator.state = state.rng_state
+        if state.mode == "multi_channel":
+            return self._block_multi_channel(state, rng)
         r0 = state.rounds_done
         K = int(n_rounds) if n_rounds is not None else (
             self.checkpoint_every or state.iterations)
         if K < 1:
             raise ValueError(f"n_rounds={K} must be >= 1")
         K = min(K, state.iterations - r0)
-        lrs = torch.from_numpy(self._lr_schedule_range(r0, r0 + K)).to(
-            self.device)
+        lrs = self._device(self._lr_schedule_range(r0, r0 + K))
         if state.mode == "multi":
             return self._block_multi(state, rng, K, lrs)
         return self._block_single(state, rng, K, lrs, eval_fn, eval_every)
 
+    def _device(self, arr) -> torch.Tensor:
+        """A NumPy block input as a float32 tensor on the device: one copy
+        a block, never one a round."""
+        return torch.from_numpy(np.asarray(arr, np.float32)).to(self.device)
+
     def _delays(self, rng, rounds: int) -> torch.Tensor:
         """(rounds, n) float32 delays on the device, one vectorized draw."""
-        times = sample_round_times(self.nodes, np.asarray(self.loads, float),
-                                   rng, rounds)
-        return torch.from_numpy(times.astype(np.float32)).to(self.device)
+        return self._device(sample_round_times(
+            self.nodes, np.asarray(self.loads, float), rng, rounds))
+
+    def _traced_xs(self, trace, rng, lrs, r0: int, est=None,
+                   controls=None):
+        """The step inputs of the rounds a trace block covers, from `rng`.
+
+        Traced delays and the availability rows; with an adaptive scheme
+        the plan of those rounds first (`plan_segment`, advancing the
+        estimator `est` from `controls`), whose deadlines and mask indices
+        (adaptive_coded) or wait counts (adaptive_greedy) join the inputs.
+        Returns ``(xs, consts, seg)``: the deployment's consts with the
+        plan's mask stack, and the `SegmentPlan` (None when not adaptive).
+        """
+        consts = self._get_consts()
+        if not self.adaptive:
+            times = sample_round_times_traced(
+                self.nodes, np.asarray(self.loads, float), rng, trace)
+            return ((self._device(times), lrs, self._device(trace.active)),
+                    consts, None)
+        seg = plan_segment(self, est, trace, r0, r0 + trace.rounds,
+                           controls, rng)
+        xs = (self._device(seg.times), lrs, self._device(seg.active))
+        if self.step_kind == "adaptive_coded":
+            consts = dict(consts, gmask_blocks=seg.gmask_blocks)
+            xs = xs + (self._device(seg.t_star_r), seg.block_idx.tolist())
+        else:
+            xs = xs + (seg.n_wait_r.tolist(),)
+        return xs, consts, seg
 
     def _block_single(self, state: RunState, rng, K: int, lrs, eval_fn,
                       eval_every: int) -> RunState:
-        """K rounds of a single trajectory on pre-sampled delays."""
+        """K rounds of a single trajectory: stationary pre-sampled delays,
+        or the traced-channel (and adaptive) path chained through the
+        state's `TraceState`, estimator statistics and control values."""
         r0 = state.rounds_done
+        trace_new, est_new = state.trace, state.est
+        controls_new, sched_new = state.controls, state.sched
+        consts = None
+        if self.channel is None:
+            xs = (self._delays(rng, K), lrs)
+        else:
+            trace_block, trace_new = generate_trace_block(
+                self.nodes, self.channel, K, state.trace)
+            est = None
+            if self.adaptive:
+                est = self._estimator()
+                est.load_state_dict(state.est)
+            xs, consts, seg = self._traced_xs(trace_block, rng, lrs, r0,
+                                              est, state.controls)
+            if seg is not None:
+                est_new = est.state_dict()
+                controls_new = seg.controls
+                sched_new = _append_sched(state.sched, seg)
         eval_at = None
         losses, accs = state.losses, state.accs
         if state.collect:
@@ -539,15 +792,16 @@ class Experiment:
                 if it % eval_every == 0 or it == state.iterations - 1:
                     loss, acc = eval_fn(theta)
                     loss_b[k], acc_b[k] = float(loss), float(acc)
-        carry, cols = self._rounds(state.theta, state.lr_scale,
-                                   self._delays(rng, K), lrs, eval_at)
+        carry, cols = self._rounds(state.theta, state.lr_scale, xs, eval_at,
+                                   consts)
         t_rounds, n_ret, n_masked, skipped = (c.cpu().numpy() for c in cols)
         if state.collect:
             losses = np.concatenate([state.losses, loss_b])
             accs = np.concatenate([state.accs, acc_b])
         return dataclasses.replace(
             state, rounds_done=r0 + K, theta=carry[0],
-            rng_state=rng.bit_generator.state,
+            rng_state=rng.bit_generator.state, trace=trace_new,
+            est=est_new, controls=controls_new, sched=sched_new,
             t_rounds=np.concatenate(
                 [state.t_rounds, t_rounds.astype(np.float64)]),
             n_ret=np.concatenate([state.n_ret, n_ret]),
@@ -567,7 +821,7 @@ class Experiment:
         thetas, scales, cols = [], [], []
         for r in range(R):
             carry, cols_r = self._rounds(state.theta[r], state.lr_scale[r],
-                                         times[r], lrs)
+                                         (times[r], lrs))
             thetas.append(carry[0])
             scales.append(carry[1])
             cols.append(cols_r)
@@ -584,6 +838,45 @@ class Experiment:
                 [state.n_masked, n_masked.astype(np.int64)], axis=1),
             skipped=np.concatenate(
                 [state.skipped, skipped.astype(np.int64)], axis=1))
+
+    def _block_multi_channel(self, state: RunState, rng) -> RunState:
+        """One full traced realization per block: a fresh trace stream at
+        index ``trace_call + r`` and (adaptive family) a fresh estimator
+        and controls, as in the reference."""
+        r = state.realizations_done
+        T = state.iterations
+        tstate = TraceState.init(self.n,
+                                 self._trace_rng(state.trace_call + r))
+        trace, _ = generate_trace_block(self.nodes, self.channel, T, tstate)
+        est = controls = None
+        if self.adaptive:
+            est = self._estimator()
+            controls = self.scheme_obj.initial_controls(self)
+        xs, consts, seg = self._traced_xs(
+            trace, rng, self._device(self._lr_schedule(T)), 0, est, controls)
+        # the record kept is the LAST realization's plan, as the
+        # reference's `last_schedule`
+        sched_new = (state.sched if seg is None
+                     else _append_sched(_empty_sched(self.n), seg))
+        carry, cols = self._rounds(
+            torch.zeros((self.q, self.c), dtype=torch.float32,
+                        device=self.device), 1.0, xs, consts=consts)
+        t_rounds, n_ret, n_masked, skipped = (c.cpu().numpy() for c in cols)
+        theta = state.theta.clone()
+        theta[r] = carry[0]
+        lr_scale = np.asarray(state.lr_scale, np.float64).copy()
+        lr_scale[r] = float(carry[1])
+        return dataclasses.replace(
+            state, realizations_done=r + 1, rounds_done=(r + 1) * T,
+            theta=theta, rng_state=rng.bit_generator.state, sched=sched_new,
+            t_rounds=np.concatenate(
+                [state.t_rounds, t_rounds.astype(np.float64)[None]]),
+            n_ret=np.concatenate([state.n_ret, n_ret[None]]),
+            lr_scale=lr_scale,
+            n_masked=np.concatenate(
+                [state.n_masked, n_masked.astype(np.int64)[None]]),
+            skipped=np.concatenate(
+                [state.skipped, skipped.astype(np.int64)[None]]))
 
     # ---------------------------------------------------- checkpoint/restore
     def save_state(self, path: str, state: RunState) -> str:
@@ -605,7 +898,15 @@ class Experiment:
                     f"checkpoint provenance mismatch: {path!r} was saved "
                     "by a run of a different ExperimentSpec than this "
                     "experiment's; refusing to resume across specs")
-        return unpack_state(arrays, meta, device=self.device)
+        state = unpack_state(arrays, meta, device=self.device)
+        # bump the trace-stream cursor past the restored run's reservation
+        # so new runs on this experiment stay disjoint from it
+        if state.trace_call >= 0:
+            reserved = (int(state.n_realizations)
+                        if state.mode == "multi_channel" else 1)
+            self._trace_calls = max(self._trace_calls,
+                                    state.trace_call + reserved)
+        return state
 
     # ------------------------------------------------------------ finalizing
     def finish(self, state: RunState,
@@ -619,9 +920,33 @@ class Experiment:
                 f"{state.iterations} rounds); call run_block until "
                 "state.done")
         self.rng.bit_generator.state = state.rng_state
+        if state.sched is not None:
+            self.last_schedule = self._assemble_schedule(state.sched)
         if state.mode == "single":
             return self._finish_single(state)
         return self._finish_multi(state, eval_fn)
+
+    def _assemble_schedule(self, sched: dict) -> AdaptiveSchedule:
+        """The run's `AdaptiveSchedule` from the state's record (the masks
+        re-derived from the per-block loads: `gmask_for_loads` is a pure
+        function of them)."""
+        estimates = [
+            {"mu": sched["est_mu"][b], "tau": sched["est_tau"][b],
+             "p": sched["est_p"][b], "avail": sched["est_avail"][b],
+             "rounds_seen": int(sched["est_rounds_seen"][b])}
+            for b in range(sched["loads_blocks"].shape[0])]
+        out = AdaptiveSchedule(
+            times=sched["times"], active=sched["active"],
+            block_idx=sched["block_idx"],
+            loads_blocks=sched["loads_blocks"], estimates=estimates)
+        if self.step_kind == "adaptive_coded":
+            out.t_star = sched["t_star_r"]
+            out.gmask_blocks = torch.stack(
+                [self.scheme_obj.gmask_for_loads(self, loads)
+                 for loads in sched["loads_blocks"]])
+        else:
+            out.n_wait = sched["n_wait_r"]
+        return out
 
     @staticmethod
     def _run_health(state: RunState) -> "RunHealth | None":

@@ -10,20 +10,22 @@ everything a checkpoint needs to resume it bit-identically after a kill:
   * the run RNG's bit-generator state (delay draws continue mid-stream),
   * the per-round accumulators that become the final `FedResult` history
     (round times, returned counts, eval losses),
+  * the trace-stream index and live `repro_torch.net.trace.TraceState` of
+    the channel trace, the `OnlineChannelEstimator` sufficient statistics,
+    the adaptive control values (loads / deadline / wait count) in effect
+    and the adaptive schedule record,
   * the divergence guard's lr backoff scale and the per-round
     masked-return / skipped-round accumulators (`FedResult.health`).
 
-The reference's state also carries channel dynamics (the trace-stream
-index and trace state, the channel estimator's statistics, the adaptive
-controls and schedule record), the stale-fault iterate and fault stream,
-and the hierarchical tier's sampling stream.  The port runs none of these
-yet: their fields stay None here, and a payload that holds any of the
-channel ones raises `NotImplementedError` on unpacking.
+The reference's state also carries the stale-fault iterate and fault
+stream, and the hierarchical tier's sampling stream.  The port runs
+neither yet: those fields round-trip but are not read.
 
-Modes: ``"single"`` (one trajectory, blocks advance the round cursor) and
+Modes: ``"single"`` (one trajectory, blocks advance the round cursor),
 ``"multi"`` (stationary `run_multi`, blocks advance all realizations'
-round cursors together) run in the port; ``"multi_channel"`` and
-``"hier"`` are known, so their payloads unpack, but do not run.
+round cursors together) and ``"multi_channel"`` (traced `run_multi`, a
+block is one whole realization with its own trace) run in the port;
+``"hier"`` is known, so its payloads unpack, but does not run.
 
 `pack_state`/`unpack_state` convert to/from the (arrays, JSON-meta)
 payload of `repro_torch.checkpoint.io.save_state` with the reference's
@@ -40,13 +42,29 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.net.trace import TraceState
 
 FORMAT_VERSION = 2
 
 _MODES = ("single", "multi", "multi_channel", "hier")
 
-#: meta entries of the channel-dynamics state the port does not run yet
-_CHANNEL_META = ("trace", "est", "controls", "has_sched")
+#: per-sub-block adaptive schedule record arrays, (B, n) unless noted
+SCHED_KEYS = ("times", "active", "block_idx", "t_star_r", "n_wait_r",
+              "loads_blocks", "est_mu", "est_tau", "est_p", "est_avail",
+              "est_rounds_seen")
+
+_WIN_KEYS = ("comp", "tau", "ntr", "avail")
+_TRACE_KEYS = ("ge_bad", "shadow_x", "drift_g", "churn_active")
+_EST_KEYS = ("s_tau", "s_ntr", "s_comp", "avail_hat")
+
+#: the arrays each channel part of the meta promises
+_CHANNEL_ARRAYS = {
+    "trace": tuple(f"trace/{k}" for k in _TRACE_KEYS),
+    "est": (tuple(f"est/{k}" for k in _EST_KEYS)
+            + tuple(f"est/win_{k}" for k in _WIN_KEYS)),
+    "controls": ("controls/loads",),
+    "has_sched": tuple(f"sched/{k}" for k in SCHED_KEYS),
+}
 
 
 @dataclasses.dataclass
@@ -57,6 +75,8 @@ class RunState:
 
       single        t_rounds (r,)    n_ret (r,)    theta (q, c)
       multi         t_rounds (R, r)  n_ret (R, r)  theta (R, q, c)
+      multi_channel t_rounds (realizations_done, T), theta (R, q, c)
+                    with rows past ``realizations_done`` still zero
     """
     mode: str
     iterations: int
@@ -67,14 +87,14 @@ class RunState:
     theta: Any                        # torch.Tensor
     rng_state: dict                   # run RNG (delay draws)
     trace_call: int                   # base trace-stream index (-1 = none)
-    trace: Optional[Any]              # channel trace state (not ported)
-    est: Optional[dict]               # channel estimator (not ported)
-    controls: Optional[dict]          # adaptive controls (not ported)
+    trace: Optional[TraceState]       # channel trace cursor
+    est: Optional[dict]               # OnlineChannelEstimator.state_dict()
+    controls: Optional[dict]          # {"loads", "t_star", "n_wait"}
     t_rounds: np.ndarray
     n_ret: np.ndarray
     losses: Optional[np.ndarray]      # (r,) NaN where not evaluated
     accs: Optional[np.ndarray]
-    sched: Optional[dict]             # adaptive record (not ported)
+    sched: Optional[dict]             # adaptive record, keys SCHED_KEYS
     lr_scale: Any = None              # divergence-backoff lr multiplier,
                                       # () for single / (R,) for multi
     n_masked: Optional[np.ndarray] = None  # per-round masked returns
@@ -110,11 +130,6 @@ def _host(t) -> np.ndarray:
 
 def pack_state(state: RunState) -> "tuple[dict, dict]":
     """RunState -> (arrays, meta) for `checkpoint.io.save_state`."""
-    if any(getattr(state, f) is not None
-           for f in ("trace", "est", "controls", "sched")):
-        raise NotImplementedError(
-            "the PyTorch port does not support channel dynamics yet; "
-            "this state carries channel-trace or adaptive fields")
     arrays = {
         "theta": _host(state.theta),
         "t_rounds": np.asarray(state.t_rounds),
@@ -134,7 +149,7 @@ def pack_state(state: RunState) -> "tuple[dict, dict]":
         "trace": None,
         "est": None,
         "controls": None,
-        "has_sched": False,
+        "has_sched": state.sched is not None,
         "fault_rng_state": state.fault_rng_state,
         "sample_rng_state": state.sample_rng_state,
     }
@@ -148,6 +163,29 @@ def pack_state(state: RunState) -> "tuple[dict, dict]":
     if state.losses is not None:
         arrays["losses"] = np.asarray(state.losses)
         arrays["accs"] = np.asarray(state.accs)
+    if state.trace is not None:
+        meta["trace"] = {"rng_state": state.trace.rng_state,
+                         "rounds_done": int(state.trace.rounds_done)}
+        for key in _TRACE_KEYS:
+            arrays[f"trace/{key}"] = getattr(state.trace, key)
+    if state.est is not None:
+        est = state.est
+        meta["est"] = {"beta": float(est["beta"]),
+                       "window": _scalar(est["window"]),
+                       "rounds_seen": int(est["rounds_seen"])}
+        for key in _EST_KEYS:
+            arrays[f"est/{key}"] = np.asarray(est[key])
+        for key in _WIN_KEYS:
+            arrays[f"est/win_{key}"] = np.asarray(est["win"][key])
+    if state.controls is not None:
+        meta["controls"] = {
+            "t_star": _scalar(state.controls.get("t_star")),
+            "n_wait": _scalar(state.controls.get("n_wait"))}
+        arrays["controls/loads"] = np.asarray(state.controls["loads"],
+                                              np.float64)
+    if state.sched is not None:
+        for key in SCHED_KEYS:
+            arrays[f"sched/{key}"] = np.asarray(state.sched[key])
     return arrays, meta
 
 
@@ -157,16 +195,45 @@ def unpack_state(arrays: dict, meta: dict, device=None) -> RunState:
     if meta.get("format") != FORMAT_VERSION:
         raise ValueError(f"run-state format {meta.get('format')!r} not "
                          f"supported (this build reads {FORMAT_VERSION})")
-    held = [key for key in _CHANNEL_META if meta.get(key)]
-    if held:
-        raise NotImplementedError(
-            "the PyTorch port does not support channel dynamics yet; the "
-            f"checkpoint holds {held}")
+    for part, keys in _CHANNEL_ARRAYS.items():
+        missing = [k for k in keys if k not in arrays]
+        if meta.get(part) and missing:
+            raise ValueError(
+                f"run-state payload declares channel state {part!r} but "
+                f"lacks its arrays {missing}")
     dev = resolve_device(device)
 
     def tensor(key):
         return torch.from_numpy(np.array(arrays[key], copy=True)).to(dev)
 
+    trace = None
+    if meta["trace"] is not None:
+        trace = TraceState(
+            rng_state=meta["trace"]["rng_state"],
+            rounds_done=int(meta["trace"]["rounds_done"]),
+            ge_bad=np.asarray(arrays["trace/ge_bad"], bool),
+            shadow_x=np.asarray(arrays["trace/shadow_x"], np.float64),
+            drift_g=np.asarray(arrays["trace/drift_g"], np.float64),
+            churn_active=np.asarray(arrays["trace/churn_active"], bool))
+    est = None
+    if meta["est"] is not None:
+        est = {"beta": meta["est"]["beta"],
+               "window": meta["est"]["window"],
+               "rounds_seen": meta["est"]["rounds_seen"],
+               "win": {key: np.asarray(arrays[f"est/win_{key}"])
+                       for key in _WIN_KEYS}}
+        for key in _EST_KEYS:
+            est[key] = np.asarray(arrays[f"est/{key}"])
+    controls = None
+    if meta["controls"] is not None:
+        controls = {"loads": np.asarray(arrays["controls/loads"],
+                                        np.float64),
+                    "t_star": meta["controls"]["t_star"],
+                    "n_wait": meta["controls"]["n_wait"]}
+    sched = None
+    if meta.get("has_sched"):
+        sched = {key: np.asarray(arrays[f"sched/{key}"])
+                 for key in SCHED_KEYS}
     has_eval = bool(meta.get("has_eval"))
     return RunState(
         mode=meta["mode"],
@@ -178,12 +245,12 @@ def unpack_state(arrays: dict, meta: dict, device=None) -> RunState:
         theta=tensor("theta"),
         rng_state=meta["rng_state"],
         trace_call=int(meta["trace_call"]),
-        trace=None, est=None, controls=None,
+        trace=trace, est=est, controls=controls,
         t_rounds=np.asarray(arrays["t_rounds"]),
         n_ret=np.asarray(arrays["n_ret"]),
         losses=np.asarray(arrays["losses"]) if has_eval else None,
         accs=np.asarray(arrays["accs"]) if has_eval else None,
-        sched=None,
+        sched=sched,
         lr_scale=(np.asarray(arrays["lr_scale"])
                   if "lr_scale" in arrays else None),
         n_masked=(np.asarray(arrays["n_masked"])

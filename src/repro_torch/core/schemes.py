@@ -1,6 +1,6 @@
 """Straggler-mitigation scheme registry (the paper's §V "Schemes").
 
-The port of ``repro.core.schemes`` for the stationary main path:
+The port of ``repro.core.schemes``:
 
   naive          — server waits for ALL n clients (full load).
   greedy         — server waits for the fastest (1-psi)*n clients.
@@ -11,11 +11,17 @@ The port of ``repro.core.schemes`` for the stationary main path:
   partial_coded  — coded with a fraction of the redundancy budget,
                    u = u_fraction * delta * m (``scheme_params``
                    "u_fraction", default 0.5).
+  adaptive_coded — coded with the loads and t* re-solved every
+                   ``adapt_every`` rounds on the estimated network
+                   (`repro_torch.net.estimator`), applied as per-block
+                   prefix masks over full-length client rows.
+  adaptive_greedy — greedy with the wait count re-tuned every
+                   ``adapt_every`` rounds.
 
 Each scheme owns its host-side deployment setup (load allocation, parity
 construction, privacy accounting) and its contribution to the round step
-(`fed_runtime.build_step`).  The adaptive schemes of the reference are not
-registered here yet.
+(`fed_runtime.build_step`).  The adaptive schemes opt out of the profile
+grid (``grid = False``), as in the reference.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import torch
 from repro_torch.core import aggregation, encoding, load_allocation, privacy
 from repro_torch.core.delay_model import ideal_round_time, packet_bits
 
-STEP_KINDS = ("naive", "greedy", "coded", "ideal")
+STEP_KINDS = ("naive", "greedy", "coded", "ideal", "adaptive_coded",
+              "adaptive_greedy")
 
 
 class Scheme:
@@ -33,11 +40,14 @@ class Scheme:
 
     Subclasses set ``name`` (registry key) and ``step_kind`` (the branch of
     `fed_runtime.build_step`: one of `STEP_KINDS`).  ``coded`` marks
-    schemes that allocate loads and build a parity set.
+    schemes that allocate loads and build a parity set; ``grid`` those
+    that belong to the default profile-grid sweep (the adaptive schemes
+    opt out: they need a channel trace and a per-run control schedule).
     """
     name: str = ""
     step_kind: str = ""
     coded: bool = False
+    grid: bool = True
 
     def setup(self, exp) -> None:
         """Host-side deployment setup; mutates the Experiment in place."""
@@ -60,6 +70,20 @@ class Scheme:
         """Worst-case eps-MI-DP leakage (bits) of what clients share, or
         None when nothing beyond gradients leaves the device."""
         return None
+
+    def replan(self, exp, estimator) -> dict:
+        """Adaptive-family hook: new control values from the estimated
+        network, called by `repro_torch.net.estimator.plan_segment`
+        between sub-blocks ({"loads", "t_star"} for the coded family,
+        {"n_wait"} for the greedy family); other schemes never re-plan."""
+        raise NotImplementedError(f"{self.name!r} is not adaptive")
+
+    def initial_controls(self, exp) -> dict:
+        """The control values in effect at round 0 of a fresh `RunState`:
+        the load vector, the wait count and (coded family) the setup-time
+        deadline (``t_star`` None otherwise)."""
+        return {"loads": np.asarray(exp.loads, np.float64).copy(),
+                "t_star": exp.t_star, "n_wait": exp.n_wait}
 
     def __repr__(self):
         return f"<Scheme {self.name!r} step_kind={self.step_kind!r}>"
@@ -124,6 +148,9 @@ class CodedScheme(Scheme):
         # matrix; point perm[j, k] is the k-th point client j processes
         perm = exp.rng.permuted(
             np.tile(np.arange(exp.l), (exp.n, 1)), axis=1)
+        # selection-priority order: the adaptive family re-masks prefixes
+        # of it when it re-allocates loads
+        exp._select_perm = perm
         take = np.arange(exp.l)[None, :] < exp.loads[:, None]   # (n, l)
         processed = np.zeros((exp.n, exp.l), dtype=bool)
         row_ids = np.broadcast_to(np.arange(exp.n)[:, None],
@@ -246,6 +273,120 @@ class PartialCodedScheme(CodedScheme):
                                 * exp.fl.delta * exp.m)))
 
 
+class AdaptiveCodedScheme(CodedScheme):
+    """CodedFedL with blockwise load re-allocation under network drift
+    (``repro.core.schemes.AdaptiveCodedScheme``).
+
+    Every ``adapt_every`` rounds the two-step allocation is re-solved on
+    the estimated network; the new loads are prefix masks over each
+    client's points in selection-priority order, so the (n+1, L, q) round
+    tensor never changes, only the mask the round indexes by sub-block.
+    The parity set stays the one built at setup.  ``scheme_params``:
+    ``est_beta``, ``est_window`` (the estimator), ``avail_min`` (the
+    availability score below which a client gets no load, default 0.5).
+
+    Unlike the coded round, the client rows are NOT zero past a client's
+    setup load: they hold every point in priority order, which a re-plan
+    may switch on (up to l, past the setup's largest load).  So the round
+    passes live_rows = (l, u).
+    """
+    name = "adaptive_coded"
+    step_kind = "adaptive_coded"
+    grid = False
+
+    def setup(self, exp) -> None:
+        if not exp.fused_coded:
+            raise ValueError(
+                "adaptive_coded requires fused_coded=True (re-allocation "
+                "re-weights the fused client+parity mask)")
+        if exp.fused_embed:
+            raise NotImplementedError(
+                "adaptive_coded does not support fused_embed yet (the "
+                "per-block gmask re-weighting assumes embedded tensors)")
+        super().setup(exp)
+        # full-length priority view: every client's points in selection-
+        # priority order, so any re-allocated load l_j <= l is a prefix
+        # mask of the same (n, l) tensor
+        perm = torch.from_numpy(exp._select_perm).to(exp.device)
+        clients = torch.arange(exp.n, device=exp.device)[:, None]
+        exp._adapt_x = exp.x[clients, perm]
+        exp._adapt_y = exp.y[clients, perm]
+
+    def grad_tensors(self, exp):
+        # full-length tensors; the per-block prefix mask (not baked into
+        # the data) selects the processed points
+        gx, gy, gmask = aggregation.fused_client_parity_tensors(
+            exp._adapt_x, exp._adapt_y,
+            torch.from_numpy(self._prefix_mask(exp, exp.loads)).to(
+                exp.device),
+            exp.parity.x, exp.parity.y, pnr_c=0.0)
+        exp._live_rows = (exp.l, exp.parity.x.shape[0])
+        return gx, gy, gmask, [1.0]
+
+    @staticmethod
+    def _prefix_mask(exp, loads) -> np.ndarray:
+        """(n, l) float32 prefix mask over the priority order."""
+        loads = np.asarray(loads)
+        return (np.arange(exp.l)[None, :]
+                < loads[:, None]).astype(np.float32)
+
+    def gmask_for_loads(self, exp, loads) -> torch.Tensor:
+        """(n+1, L) float32 fused mask for a load vector, on the
+        experiment's device: client prefix rows plus the 1/u-scaled parity
+        pseudo-row."""
+        L = max(exp.l, exp.u)
+        mask = np.zeros((exp.n + 1, L), np.float32)
+        mask[:exp.n, :exp.l] = self._prefix_mask(exp, loads)
+        mask[exp.n, :exp.u] = 1.0 / exp.u
+        return torch.from_numpy(mask).to(exp.device)
+
+    def replan(self, exp, estimator) -> dict:
+        est_nodes = estimator.estimated_nodes()
+        avail_min = float(exp.scheme_params.get("avail_min", 0.5))
+        caps = np.where(estimator.avail_hat >= avail_min, float(exp.l), 0.0)
+        if exp._pick_alloc_backend() == "vectorized":
+            def allocate(*args):
+                return load_allocation.two_step_allocate_vectorized(
+                    *args, device=exp.device)
+        else:
+            allocate = load_allocation.two_step_allocate
+        try:
+            alloc = allocate(est_nodes, list(caps), None, float(exp.u),
+                             float(exp.m))
+        except ValueError:
+            # too many clients estimated unavailable for feasibility: fall
+            # back to full caps rather than keep a stale plan
+            alloc = allocate(est_nodes, [float(exp.l)] * exp.n, None,
+                             float(exp.u), float(exp.m))
+        loads = np.minimum(np.floor(alloc.loads).astype(int), exp.l)
+        return {"loads": loads, "t_star": float(alloc.t_star)}
+
+
+class AdaptiveGreedyScheme(GreedyScheme):
+    """Greedy waiting with an adaptively re-tuned wait count
+    (``repro.core.schemes.AdaptiveGreedyScheme``): every ``adapt_every``
+    rounds, the k minimizing E[T]_(k) / k over the estimated per-client
+    expected delays of the clients whose availability score clears
+    ``avail_min`` (default 0.5)."""
+    name = "adaptive_greedy"
+    step_kind = "adaptive_greedy"
+    grid = False
+
+    def replan(self, exp, estimator) -> dict:
+        est_nodes = estimator.estimated_nodes()
+        avail_min = float(exp.scheme_params.get("avail_min", 0.5))
+        avail = estimator.avail_hat >= avail_min
+        if not np.any(avail):
+            return {"n_wait": 1}
+        exp_delay = np.array([nd.expected_delay(float(exp.l))
+                              for nd in est_nodes])
+        srt = np.sort(np.where(avail, exp_delay, np.inf))
+        k = np.arange(1, exp.n + 1, dtype=np.float64)
+        with np.errstate(invalid="ignore"):
+            cost = np.where(np.isfinite(srt), srt / k, np.inf)
+        return {"n_wait": int(np.argmin(cost)) + 1}
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
@@ -285,8 +426,15 @@ def registered_names() -> tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+def grid_names() -> tuple[str, ...]:
+    """Schemes of the default profile grid (the adaptive ones opt out)."""
+    return tuple(n for n, s in _REGISTRY.items() if s.grid)
+
+
 register(CodedScheme())
 register(NaiveScheme())
 register(GreedyScheme())
 register(IdealScheme())
 register(PartialCodedScheme())
+register(AdaptiveCodedScheme())
+register(AdaptiveGreedyScheme())

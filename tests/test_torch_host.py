@@ -171,15 +171,17 @@ def test_spec_round_trip_matches_reference(kw):
 # (id, spec fields, the feature the refusal names, a ported feature it
 # must no longer name): the ported ones ride along with a missing feature
 _UNSUPPORTED = [
-    ("channel dynamics", dict(channel_profile="static"), "channel dynamics",
-     None),
+    ("channel dynamics", dict(channel_profile="static",
+                              secure_aggregation=True),
+     "secure aggregation", "channel"),
     ("fault injection", dict(fault_profile="none"), "fault injection", None),
     ("hierarchical", dict(hier_shards=2), "hierarchical", None),
     ("client-mesh", dict(mesh=2), "client-mesh", None),
     ("secure aggregation", dict(secure_aggregation=True),
      "secure aggregation", None),
-    ("adaptive", dict(scheme="adaptive_coded", adapt_every=2), "adaptive",
-     None),
+    ("adaptive", dict(scheme="adaptive_coded", adapt_every=2,
+                      secure_aggregation=True), "secure aggregation",
+     "adaptive"),
     ("fused_embed", dict(fused_embed=True, rff=t_config.RFFConfig(q=8),
                          secure_aggregation=True), "secure aggregation",
      "fused_embed"),
