@@ -76,7 +76,34 @@ Phases, each printed as one JSON object per line:
              auto re-planning on the vectorized solver on the card;
              repro_torch.launch.adaptive_drift.main() (120 launches, the
              adaptive run sooner to the target);
- 15. serve:  the model zoo's serving path, qwen3-4b at full width (36
+ 15. faults: return faults at MNIST-RFF width: coded (fused and
+             fused_coded=False) under "chaos" (NaN/inf mix, stale replay,
+             parity corruption) and naive under "flaky_clients" with the
+             guard on and off, 20 rounds each; wall clock and returned
+             counts bit-identical to the clean twin (the main path's run),
+             n_masked to the host replay of the fault stream
+             (default_rng((seed + 7717,))); under stale replay each round
+             launches linreg_grad_masked twice (40 a run, + 20 linreg_grad
+             unfused), naive 20; coded ends finite with no skipped round,
+             naive unguarded skips rounds and backs its lr off; warm ms per
+             round beside the clean twin's; coded card against CPU for 3
+             rounds; checkpoint_every = 5 with stale faults: the newest two
+             checkpoints corrupted (truncate, bitflip), a fresh experiment
+             resumes from the newest intact one bit for bit (theta_prev and
+             fault_rng_state in the checkpoint);
+ 16. secure_agg: the coded deployment with secure_aggregation=True: its
+             global parity within secure_agg.rounding_tolerance of the main
+             path's unmasked one (the gap printed), 2 parity_encode_batched
+             launches, the 20-round run's wall clock and returned counts
+             equal to the main coded run's and theta within tolerance; the
+             setup split into the solver, the encode and the masks;
+ 17. sweep:  launch.sweep.run_sweep over uniform, paper and extreme with
+             every grid scheme, R = 4, T = 20: 1200 linreg_grad_masked
+             launches; each cell against the deployment's run_multi(20, 4)
+             from the same generator position (wall clock and returned
+             counts equal, theta bit for bit); host_seconds beside the
+             looped time;
+ 18. serve:  the model zoo's serving path, qwen3-4b at full width (36
              layers, d_model 2560, bf16) from seeded random weights: 8
              requests of 4096-token prompts (make_batch), 64 greedy tokens
              each (max_seq 4160, window 0) through
@@ -85,13 +112,13 @@ Phases, each printed as one JSON object per line:
              its byte bound, tokens/s; then torch.profiler over 4 warm
              decode steps after a second prefill: device busy and idle
              share of a step, the top kernels, and gqa_decode's share;
- 16. serve_check: full width at 4 layers, float32: the last decode step's
+ 19. serve_check: full width at 4 layers, float32: the last decode step's
              logits against the last-position logits of a prefill over
              prompt + generated tokens, at window 0 and at window 1024 over
              a 4096-token prompt (a rolling cache);
- 17. serve_cpu: the qwen3-4b smoke variant served on the card and on the
+ 20. serve_cpu: the qwen3-4b smoke variant served on the card and on the
              CPU (plain versions): identical tokens, logits within tolerance;
- 18. kernel: each kernel against its plain PyTorch version on the card, at
+ 21. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
              tile multiple; times with CUDA events.  linreg_grad_masked at
@@ -123,7 +150,7 @@ Phases, each printed as one JSON object per line:
              by events, on the device (device_ms, library_device_ms) and on
              the host (host_ms: the wrapper's enqueue), beside SDPA with its
              mask made once outside the timed calls;
- 19. the kernels table, then the final line
+ 22. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -159,8 +186,13 @@ CHANNEL_MULTI_R = 4       # its run_multi realizations
 HOST_COST_PAIRS = 6       # stationary/channel warm runs timed in turns
 ADAPT_PROFILE = "degrade_drift"   # the adaptive phase's profile
 ADAPT_EVERY = 5
+FAULTS_CODED = "chaos"            # NaN/inf mix, stale replay, bad parity
+FAULTS_NAIVE = "flaky_clients"    # NaN uploads
+SWEEP_PROFILES = ("uniform", "paper", "extreme")
+SWEEP_R = 4                       # the sweep's realizations
 # the resume phase's checkpoints, under the git-ignored build/
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+FAULT_CKPT_DIR = CKPT_DIR.parent / "chip_smoke_fault_ckpt"
 PEAK_FLOPS = 67e12        # H100 SXM float32, outside the tensor cores
 PEAK_BF16 = 989e12        # H100 SXM bf16 tensor cores, dense
 PEAK_TF32 = 495e12        # H100 SXM TF32 tensor cores, dense
@@ -1492,6 +1524,356 @@ def adaptive_path(torch, dev, state) -> None:
     _release(torch)
 
 
+def _replay_fault_masks(exp, rng_state, rounds: int) -> list:
+    """Per-round n_masked of a faulty run, replayed on the host: the
+    delay draw (float32 deadlines) gives the clients that returned, the
+    fault stream (default_rng((seed + 7717,))) their codes; a returned
+    client with a NaN/inf code is masked, and on coded a corrupted-parity
+    round masks the parity contribution too.  Without the guard nothing
+    is masked."""
+    from repro_torch.core.delay_model import sample_round_times
+    from repro_torch.faults import CODE_INF, CODE_NAN, sample_fault_rows
+
+    if not exp.nonfinite_guard:
+        return [0] * rounds
+    rng = np.random.default_rng()
+    rng.bit_generator.state = rng_state
+    times = sample_round_times(exp.nodes, np.asarray(exp.loads, float), rng,
+                               rounds).astype(np.float32)
+    codes, fpar = sample_fault_rows(
+        exp.faults, np.random.default_rng((exp.fl.seed + 7717,)), rounds,
+        exp.n)
+    if exp.step_kind == "coded":
+        ret = (times <= np.float32(exp.t_star)) & (exp.loads > 0)
+        extra = fpar.astype(np.int64)
+    else:                                           # naive
+        ret = np.ones_like(times, bool)
+        extra = np.zeros(rounds, np.int64)
+    bad = np.isin(codes, (CODE_NAN, CODE_INF)) & ret
+    return (bad.sum(axis=1) + extra).tolist()
+
+
+def faults_path(torch, dev, state) -> None:
+    """Return faults at MNIST-RFF width: coded (fused and unfused) under
+    FAULTS_CODED, naive under FAULTS_NAIVE with the guard on and off, each
+    against its clean twin (the main path's run) and the host replay of
+    the fault stream; coded card against CPU; kill/resume with stale
+    faults on and corrupted newest checkpoints."""
+    import shutil
+
+    from repro_torch.api import build_experiment
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.faults import corrupt_checkpoint
+    from repro_torch.kernels import ops
+
+    base = state["spec"]
+    runs = (("coded", "coded", FAULTS_CODED, {}),
+            ("coded_unfused", "coded", FAULTS_CODED,
+             dict(fused_coded=False)),
+            ("naive_guarded", "naive", FAULTS_NAIVE, {}),
+            ("naive_unguarded", "naive", FAULTS_NAIVE,
+             dict(nonfinite_guard=False)))
+    kept = {}
+    for name, scheme, profile, over in runs:
+        spec = dataclasses.replace(base, scheme=scheme,
+                                   fault_profile=profile, **over)
+        t0 = time.perf_counter()
+        exp = build_experiment(spec, state["xs"], state["ys"], device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        start = exp.rng.bit_generator.state
+        want_masked = _replay_fault_masks(exp, start, ROUNDS)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = exp.run(ROUNDS)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) / ROUNDS * 1e3
+        launches = dict(ops.LAUNCHES)
+        clean_exp, clean = state["results"][scheme]
+        same_wall = ([h.wall_clock for h in res.history]
+                     == [h.wall_clock for h in clean.history])
+        same_ret = ([h.returned for h in res.history]
+                    == [h.returned for h in clean.history])
+        got_masked = [h.n_masked for h in res.history]
+        warm = warm_ms(torch, exp)
+        clean_warm = warm_ms(torch, clean_exp)
+        add_launches(state, dict(ops.LAUNCHES))
+        finite = bool(torch.isfinite(res.theta).all())
+        h = res.health
+        emit({"phase": "faults", "run": name, "profile": profile,
+              "stale": exp.stale_faults, "rounds": ROUNDS,
+              "setup_s": setup_s, "wall_clock_identical_to_clean": same_wall,
+              "returned_identical_to_clean": same_ret,
+              "n_masked": got_masked, "n_masked_replayed": want_masked,
+              "skipped": [r.skipped for r in res.history],
+              "health": dataclasses.asdict(h), "theta_finite": finite,
+              "accuracy_clean": clean.history[-1].accuracy,
+              "first_ms_per_round": first_ms, "warm_ms_per_round": warm,
+              "clean_warm_ms_per_round": clean_warm, "launches": launches})
+        check(same_wall and same_ret, f"faults {name}: wall clock or "
+              "returned counts differ from the clean twin")
+        check(got_masked == want_masked, f"faults {name}: n_masked "
+              f"{got_masked} differs from the host replay {want_masked}")
+        check(finite, f"faults {name}: theta is not finite")
+        sums = 2 if exp.stale_faults else 1
+        check(launches["linreg_grad_masked"] == sums * ROUNDS,
+              f"faults {name}: linreg_grad_masked launched "
+              f"{launches['linreg_grad_masked']} times, expected "
+              f"{sums * ROUNDS}")
+        check(launches["linreg_grad"]
+              == (ROUNDS if name == "coded_unfused" else 0),
+              f"faults {name}: linreg_grad launched "
+              f"{launches['linreg_grad']} times")
+        if scheme == "coded":
+            check(h.rounds_skipped == 0 and h.returns_masked > 0,
+                  f"faults {name}: health {h}")
+        elif name == "naive_unguarded":
+            check(h.rounds_skipped > 0 and h.lr_scale < 1.0,
+                  f"faults {name}: the unguarded run did not stall: {h}")
+        else:
+            check(h.rounds_skipped == 0 and h.returns_masked > 0,
+                  f"faults {name}: health {h}")
+        kept[name] = (exp, start)
+
+    # coded under faults, card against CPU from the same positions
+    exp, start = kept["coded"]
+    exp.rng.bit_generator.state = start
+    ops.reset_launch_counts()
+    gpu = exp.run(CPU_ROUNDS)
+    add_launches(state, dict(ops.LAUNCHES))
+    cpu = build_experiment(exp.spec, state["xs"], state["ys"],
+                           device="cpu").run(CPU_ROUNDS)
+    err = float((gpu.theta.cpu() - cpu.theta).abs().max())
+    tol = THETA_REL_TOL * max(1.0, float(cpu.theta.abs().max()))
+    same = all([getattr(a, f) for a in gpu.history]
+               == [getattr(b, f) for b in cpu.history]
+               for f in ("wall_clock", "returned", "n_masked", "skipped"))
+    emit({"phase": "faults", "run": "coded", "cpu_rounds": CPU_ROUNDS,
+          "theta_max_abs_err": err, "tol": tol,
+          "rounds_and_masks_identical": same})
+    check(same, "faults coded: card and CPU runs saw other rounds")
+    check(err <= tol, f"faults coded: card theta differs from CPU theta: "
+          f"{err} > {tol}")
+    del kept, exp
+
+    # kill and resume with stale faults on: the uninterrupted run writes a
+    # checkpoint a block; the newest two are corrupted (truncated, flipped
+    # bits), so a fresh experiment resumes from the newest intact one
+    spec = dataclasses.replace(base, fault_profile=FAULTS_CODED,
+                               checkpoint_every=RESUME_EVERY)
+    shutil.rmtree(FAULT_CKPT_DIR, ignore_errors=True)
+    ops.reset_launch_counts()
+    control = build_experiment(spec, state["xs"], state["ys"],
+                               device=dev).run(
+        ROUNDS, checkpoint_dir=str(FAULT_CKPT_DIR))
+    paths = sorted(FAULT_CKPT_DIR.iterdir())
+    arrays, meta = ckpt_io.restore_state(str(paths[-1]))
+    carried = {"theta_prev": list(arrays["theta_prev"].shape)
+               if "theta_prev" in arrays else None,
+               "fault_rng_state": meta.get("fault_rng_state") is not None}
+    kinds = [corrupt_checkpoint(str(paths[-1]), "truncate"),
+             corrupt_checkpoint(str(paths[-2]), "bitflip")]
+    fallback = ckpt_io.latest_checkpoint(str(FAULT_CKPT_DIR),
+                                         valid_only=True)
+    before = dict(ops.LAUNCHES)
+    resumed = build_experiment(spec, state["xs"], state["ys"],
+                               device=dev).run(
+        ROUNDS, checkpoint_dir=str(FAULT_CKPT_DIR), resume=True)
+    torch.cuda.synchronize()
+    resumed_masked = (ops.LAUNCHES["linreg_grad_masked"]
+                      - before["linreg_grad_masked"])
+    add_launches(state, dict(ops.LAUNCHES))
+    same = (bool(torch.equal(resumed.theta, control.theta))
+            and all([getattr(a, f) for a in resumed.history]
+                    == [getattr(b, f) for b in control.history]
+                    for f in ("wall_clock", "returned", "n_masked",
+                              "skipped"))
+            and resumed.health == control.health)
+    shutil.rmtree(FAULT_CKPT_DIR, ignore_errors=True)
+    emit({"phase": "faults", "run": "resume", "profile": FAULTS_CODED,
+          "checkpoint_every": RESUME_EVERY,
+          "checkpoints": [p.name for p in paths], "corrupted": kinds,
+          "resumed_from": Path(fallback).name if fallback else None,
+          "carried": carried, "bit_identical": same,
+          "linreg_grad_masked_resumed": resumed_masked})
+    check(carried["theta_prev"] == [SIZE["q"], 10]
+          and carried["fault_rng_state"],
+          f"faults resume: the checkpoint carries {carried}")
+    check(fallback == str(paths[-3]), f"faults resume: fell back to "
+          f"{fallback}, expected {paths[-3].name}")
+    check(same, "faults resume: the resumed run differs from the "
+          "uninterrupted one")
+    check(resumed_masked == 2 * (ROUNDS - 2 * RESUME_EVERY),
+          f"faults resume: linreg_grad_masked launched {resumed_masked} "
+          "times after the restore")
+    _release(torch)
+
+
+def secure_agg_path(torch, dev, state) -> None:
+    """A coded deployment with secure_aggregation=True: its global parity
+    against the main path's unmasked one, its run against the main path's
+    coded run, and its setup split into solver, encode and masks."""
+    from repro_torch.api import build_experiment
+    from repro_torch.core import encoding, load_allocation, secure_agg
+    from repro_torch.kernels import ops
+
+    spec = dataclasses.replace(state["spec"], secure_aggregation=True)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    exp = build_experiment(spec, state["xs"], state["ys"], device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = dict(ops.LAUNCHES)
+    res = exp.run(ROUNDS)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    main_exp, main_res = state["coded"]
+    # the setup's parts, each timed alone on the same inputs
+    t0 = time.perf_counter()
+    load_allocation.two_step_allocate(
+        exp.nodes, [float(exp.l)] * exp.n, server=None, u_max=float(exp.u),
+        m=float(exp.m))
+    solver_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stacked = encoding.encode_local_batched(state["g_stack"], exp.x, exp.y,
+                                            exp.w_stack)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parity = secure_agg.secure_aggregate(
+        secure_agg.masked_uploads(exp.fl.seed + 1234, stacked))
+    torch.cuda.synchronize()
+    masks_s = time.perf_counter() - t0
+    rerun_identical = bool(torch.equal(parity.x, exp.parity.x)
+                           and torch.equal(parity.y, exp.parity.y))
+    gap_x = float((exp.parity.x - main_exp.parity.x).abs().max())
+    gap_y = float((exp.parity.y - main_exp.parity.y).abs().max())
+    x_max = float(stacked.x.abs().max())
+    tol_x = secure_agg.rounding_tolerance(exp.n, 1.0, x_max)
+    tol_y = secure_agg.rounding_tolerance(exp.n, 1.0,
+                                          float(stacked.y.abs().max()))
+    same_wall = ([h.wall_clock for h in res.history]
+                 == [h.wall_clock for h in main_res.history])
+    same_ret = ([h.returned for h in res.history]
+                == [h.returned for h in main_res.history])
+    err = float((res.theta - main_res.theta).abs().max())
+    tol = THETA_REL_TOL * max(1.0, float(main_res.theta.abs().max()))
+    emit({"phase": "secure_agg", "rounds": ROUNDS, "n": exp.n, "u": exp.u,
+          "parity_gap_x": gap_x, "parity_gap_y": gap_y,
+          "tol_x": tol_x, "tol_y": tol_y, "local_parity_abs_max": x_max,
+          "global_parity_abs_max": float(main_exp.parity.x.abs().max()),
+          "tol_reason": "4 eps n^1.5 (mask scale + max|x_j|), "
+          "secure_agg.rounding_tolerance", "rerun_identical":
+          rerun_identical, "wall_clock_identical": same_wall,
+          "returned_identical": same_ret, "theta_max_abs_err": err,
+          "theta_tol": tol, "setup_s": setup_s, "solver_s": solver_s,
+          "encode_s": encode_s, "masks_and_sum_s": masks_s,
+          "setup_launches": setup_launches, "launches": launches})
+    check(gap_x <= tol_x and gap_y <= tol_y, f"secure_agg: the masked "
+          f"parity is {gap_x} / {gap_y} from the unmasked one, beyond "
+          f"{tol_x} / {tol_y}")
+    check(gap_x > 0.0, "secure_agg: the masked parity equals the unmasked "
+          "one bit for bit: were the masks added?")
+    check(rerun_identical, "secure_agg: the masks drawn again differ")
+    check(same_wall and same_ret, "secure_agg: wall clock or returned "
+          "counts differ from the main path's coded run")
+    check(err <= tol, f"secure_agg: theta differs by {err} > {tol}")
+    check(setup_launches["parity_encode_batched"] == 2,
+          "secure_agg: parity_encode_batched launched "
+          f"{setup_launches['parity_encode_batched']} times at setup")
+    check(launches["linreg_grad_masked"] == ROUNDS,
+          f"secure_agg: linreg_grad_masked launched "
+          f"{launches['linreg_grad_masked']} times")
+    del exp, stacked, parity
+    _release(torch)
+
+
+def sweep_path(torch, dev, state) -> None:
+    """run_sweep over SWEEP_PROFILES with every grid scheme, R = SWEEP_R,
+    T = ROUNDS, each cell against the same deployment's run_multi from the
+    same generator position."""
+    from repro_torch.api import build_experiment
+    from repro_torch.core.delay_model import HETEROGENEITY_PROFILES
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sweep as sweep_mod
+
+    base = state["spec"]
+    profiles = {p: HETEROGENEITY_PROFILES[p] for p in SWEEP_PROFILES}
+    sims, build_s, reused = {}, {}, []
+    for scheme in sweep_mod.SCHEMES:
+        sims[scheme] = {}
+        for pname, knobs in profiles.items():
+            spec = dataclasses.replace(
+                base, scheme=scheme, delay_profile=None,
+                fl=dataclasses.replace(base.resolved_fl(), **knobs))
+            main = state["results"].get(scheme)
+            if main is not None and main[0].spec == spec:
+                sims[scheme][pname] = main[0]       # the main path's own
+                reused.append(f"{scheme}/{pname}")
+                continue
+            t0 = time.perf_counter()
+            sims[scheme][pname] = build_experiment(
+                spec, state["xs"], state["ys"], device=dev)
+            torch.cuda.synchronize()
+            build_s[f"{scheme}/{pname}"] = time.perf_counter() - t0
+    starts = {(s, p): sims[s][p].rng.bit_generator.state
+              for s in sims for p in profiles}
+    ops.reset_launch_counts()
+    sw = sweep_mod.run_sweep(
+        state["xs"], state["ys"], profiles=profiles, train_cfg=base.train,
+        iterations=ROUNDS, realizations=SWEEP_R, schemes=sweep_mod.SCHEMES,
+        sims=sims, base_spec=base)
+    sweep_launches = dict(ops.LAUNCHES)
+    add_launches(state, sweep_launches)
+    cells = len(sweep_mod.SCHEMES) * len(profiles)
+    check(sweep_launches["linreg_grad_masked"]
+          == cells * SWEEP_R * ROUNDS,
+          f"sweep: linreg_grad_masked launched "
+          f"{sweep_launches['linreg_grad_masked']} times, expected "
+          f"{cells * SWEEP_R * ROUNDS}")
+    ops.reset_launch_counts()
+    for scheme in sweep_mod.SCHEMES:
+        looped_s, bits, errs, lens = 0.0, {}, {}, {}
+        for pname in profiles:
+            exp = sims[scheme][pname]
+            exp.rng.bit_generator.state = starts[(scheme, pname)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop = exp.run_multi(ROUNDS, SWEEP_R)
+            torch.cuda.synchronize()
+            looped_s += time.perf_counter() - t0
+            got = sw.results[scheme][pname]
+            check(np.array_equal(got.wall_clock, loop.wall_clock)
+                  and np.array_equal(got.returned, loop.returned),
+                  f"sweep {scheme}/{pname}: wall clock or returned counts "
+                  "differ from run_multi")
+            bits[pname] = bool(torch.equal(got.theta, loop.theta))
+            errs[pname] = float((got.theta - loop.theta).abs().max())
+            lens[pname] = exp.consts_point_len()
+            check(bits[pname], f"sweep {scheme}/{pname}: theta differs from "
+                  f"run_multi's by {errs[pname]} (the padding rows past the "
+                  "live ones must keep the bits)")
+        emit({"phase": "sweep", "scheme": scheme,
+              "profiles": list(profiles), "realizations": SWEEP_R,
+              "rounds": ROUNDS, "point_len": lens,
+              "l_target": max(lens.values()), "theta_bit_identical": bits,
+              "theta_max_abs_err": errs,
+              "host_seconds": sw.host_seconds[scheme],
+              "looped_run_multi_seconds": looped_s,
+              "final_mean_wall_clock": {
+                  p: float(sw.results[scheme][p].wall_clock[:, -1].mean())
+                  for p in profiles}})
+    looped = dict(ops.LAUNCHES)
+    add_launches(state, looped)
+    emit({"phase": "sweep", "cells": cells, "reused_main_deployments":
+          reused, "build_s": build_s, "sweep_launches": sweep_launches,
+          "looped_launches": looped})
+    del sims, sw
+    _release(torch)
+
+
 def _release(torch) -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2395,8 +2777,9 @@ def main() -> int:
     emit({"phase": "main", "seconds": time.perf_counter() - t0})
     for phase in (cpu_twin, fused_embed_path, unfused_path, legacy_path,
                   encode_local_path, resume_path, multi_path, alloc_path,
-                  quickstart_path, channel_path, adaptive_path, serve_path,
-                  serve_check, serve_cpu):
+                  quickstart_path, channel_path, adaptive_path, faults_path,
+                  secure_agg_path, sweep_path, serve_path, serve_check,
+                  serve_cpu):
         t0 = time.perf_counter()
         phase(torch, dev, state)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})

@@ -40,7 +40,7 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,
                      nodes: Optional[list] = None,
                      rng: Optional[np.random.Generator] = None,
                      device=None, parity_generators=None,
-                     rff_draw=None) -> Experiment:
+                     rff_draw=None, secure_masks=None) -> Experiment:
     """Build a runnable `Experiment` from a spec and client data.
 
     spec: an `ExperimentSpec` (or its `to_dict()` form, revived here);
@@ -54,6 +54,10 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,
     key chain into one.  `rff_draw` = (omega (d, q), delta (q,)) replaces
     the fused_embed path's own draw from ``spec.rff`` — e.g. the output of
     ``repro_torch.carry.rff_from_reference`` — and is refused otherwise.
+    `secure_masks` = (x masks (P, u, q), y masks (P, u, c)), one a client
+    pair, replaces the secure-aggregation setup's own mask draws —
+    ``repro_torch.carry.secure_masks_from_reference`` — and is refused
+    without ``spec.secure_aggregation``.
 
     A spec that asks for a feature the port does not have yet raises
     ``NotImplementedError`` naming it.
@@ -69,4 +73,4 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,
     schemes.get_scheme(spec.resolved_scheme)
     return Experiment(spec, x_stack, y_stack, nodes=nodes, rng=rng,
                       device=device, parity_generators=parity_generators,
-                      rff_draw=rff_draw)
+                      rff_draw=rff_draw, secure_masks=secure_masks)

@@ -14,6 +14,10 @@ them into the port's tensors:
     that ``repro.core.schemes.CodedScheme.setup`` draws from its key chain
     (``PRNGKey(fl.seed + 99)``, split client after client), for
     ``build_experiment(..., parity_generators=...)``;
+  * `secure_masks_from_reference`: the pairwise masks of
+    ``repro.core.secure_agg`` (``_mask_like(_pair_key(PRNGKey(fl.seed +
+    1234), i, j), parity, 1.0)``, one a client pair), for
+    ``build_experiment(..., secure_masks=...)``;
   * `theta_from_reference`: a (q, c) model iterate;
   * `model_params_from_reference`: the model zoo's weights (the param
     pytree of ``repro.models.model_zoo.build(cfg).init_params``), for
@@ -51,6 +55,19 @@ def rff_from_reference(omega, delta, device=None):
 def generators_from_reference(g_stack, device=None) -> torch.Tensor:
     """The (n, u, l) generator stack as a float32 tensor on `device`."""
     return _tensor(g_stack, 3, "generator stack", device)
+
+
+def secure_masks_from_reference(mask_x, mask_y, device=None):
+    """The pairwise secure-aggregation masks as float32 tensors on
+    `device`: mask_x (P, u, q) and mask_y (P, u, c), one row a client pair
+    (lo, hi), lo < hi, in lexicographic order
+    (``repro_torch.core.secure_agg.pairs``)."""
+    mx = _tensor(mask_x, 3, "secure masks (x)", device)
+    my = _tensor(mask_y, 3, "secure masks (y)", device)
+    if mx.shape[:2] != my.shape[:2]:
+        raise ValueError(f"x masks {tuple(mx.shape)} and y masks "
+                         f"{tuple(my.shape)} disagree in pairs or rows")
+    return mx, my
 
 
 def theta_from_reference(theta, device=None) -> torch.Tensor:

@@ -10,16 +10,18 @@ unfused coded round (``fused_coded``), with raw features embedded in the
 gradient kernel (``fused_embed``), block-structured and checkpointed
 (``checkpoint_every``), over stationary delays or a traced channel
 (``channel_profile``/``channel_params``, `resolved_channel`), with the
-adaptive schemes (``adapt_every``), and the legacy per-client oracle
-(``engine="legacy"``).  A spec may still name a feature the port does not
-have yet (fault injection, the hierarchical tier, a client mesh, secure
-aggregation): the spec holds it so that it round-trips, and
-``build_experiment`` raises ``NotImplementedError`` naming the feature
-(`unsupported_features`).
+adaptive schemes (``adapt_every``), return-fault injection
+(``fault_profile``/``fault_params``, `resolved_faults`), secure
+aggregation of the parity sets (``secure_aggregation``), and the legacy
+per-client oracle (``engine="legacy"``).  A spec may still name a feature
+the port does not have yet (the hierarchical tier, a client mesh): the
+spec holds it so that it round-trips, and ``build_experiment`` raises
+``NotImplementedError`` naming the feature (`unsupported_features`).
 Combinations the reference refuses when a spec is made (``fused_embed``
 with the legacy engine or a mesh, the legacy engine with checkpoints,
-channel dynamics, faults or the hierarchical tier) raise ``ValueError``
-here too.
+channel dynamics, faults or the hierarchical tier, return faults on a
+mesh, the hierarchical tier with faults or secure aggregation) raise
+``ValueError`` here too.
 
 The model zoo's configurations (``ModelConfig`` and its family blocks,
 ``ShapeConfig``, ``SHAPES``) are copied field for field as well; the
@@ -294,11 +296,23 @@ class ExperimentSpec:
             # knob names (and values, via construction) validated eagerly
             # so the error points at the spec
             self.resolved_channel()
-        if self.engine == "legacy" and (self.fault_profile is not None
-                                        or self.fault_params):
-            raise ValueError(
-                "fault injection requires the batched engine; the "
-                "legacy per-client oracle has no fault path")
+        if self.fault_profile is not None or self.fault_params:
+            from repro_torch.faults.profile import FAULT_PROFILES
+            name = self.fault_profile
+            if name is not None and name not in FAULT_PROFILES:
+                raise ValueError(
+                    f"unknown fault_profile {name!r} "
+                    f"(expected one of {tuple(FAULT_PROFILES)})")
+            if self.engine == "legacy":
+                raise ValueError(
+                    "fault injection requires the batched engine; the "
+                    "legacy per-client oracle has no fault path")
+            # knob names and values validated eagerly, as channel_params
+            faults = self.resolved_faults()
+            if self.mesh is not None and faults.has_return_faults:
+                raise ValueError(
+                    "return-fault injection does not support client-mesh "
+                    "sharding yet (crash/checkpoint faults are fine)")
         if self.run_id is not None and not (
                 isinstance(self.run_id, str)
                 and re.fullmatch(r"[A-Za-z0-9][A-Za-z0-9._-]{0,127}",
@@ -340,6 +354,14 @@ class ExperimentSpec:
                 raise ValueError(
                     f"the hierarchical tier ({hier}) consumes embedded "
                     "client blocks; fused_embed is not supported")
+            if self.fault_profile is not None or self.fault_params:
+                raise ValueError(
+                    f"the hierarchical tier ({hier}) has no fault-injection "
+                    "path yet; drop fault_profile/fault_params")
+            if self.secure_aggregation:
+                raise ValueError(
+                    f"the hierarchical tier ({hier}) does not implement "
+                    "secure aggregation of shard rows yet")
 
     @property
     def hier_active(self) -> bool:
@@ -357,6 +379,27 @@ class ExperimentSpec:
     @property
     def channel_params_dict(self) -> dict:
         return dict(self.channel_params)
+
+    @property
+    def fault_params_dict(self) -> dict:
+        return dict(self.fault_params)
+
+    def resolved_faults(self):
+        """The effective `FaultProfile`, or None when no faults are
+        requested.  ``fault_params`` override the named profile's knobs
+        (base profile "none" when only overrides are given)."""
+        if self.fault_profile is None and not self.fault_params:
+            return None
+        from repro_torch.faults.profile import FAULT_PROFILES
+        base = FAULT_PROFILES[self.fault_profile or "none"]
+        if not self.fault_params:
+            return base
+        try:
+            return dataclasses.replace(base, **self.fault_params_dict)
+        except TypeError as exc:
+            knobs = tuple(f.name for f in dataclasses.fields(base))
+            raise ValueError(f"bad fault_params: {exc} "
+                             f"(valid knobs: {knobs})") from None
 
     def resolved_channel(self):
         """The effective `ChannelProfile`, or None when no dynamics are
@@ -417,11 +460,8 @@ class ExperimentSpec:
 def unsupported_features(spec: ExperimentSpec) -> list[str]:
     """Names of the features `spec` asks for that the port lacks."""
     checks = (
-        (spec.fault_profile is not None or bool(spec.fault_params),
-         "fault injection (fault_profile/fault_params)"),
         (spec.hier_active,
          "the hierarchical tier (hier_shards/sample_fraction)"),
         (spec.mesh is not None, "client-mesh sharding (mesh)"),
-        (spec.secure_aggregation, "secure aggregation"),
     )
     return [name for asked, name in checks if asked]

@@ -1,7 +1,7 @@
 """Federated-learning runtime of the port: the flat engine on one device.
 
-The counterpart of ``repro.core.fed_runtime`` without faults, the
-hierarchical tier or a client mesh.  The batched engine
+The counterpart of ``repro.core.fed_runtime`` without the hierarchical
+tier or a client mesh.  The batched engine
 (``engine="batched"``) runs the fused coded round (``fused_coded=True``:
 the parity set is one more row of the round's single gradient launch) or
 the unfused one (``fused_coded=False``: a separate ``linreg_grad``
@@ -61,6 +61,15 @@ The non-finite guard (``spec.nonfinite_guard``) zeroes non-finite gradient
 rows out of the weighted sum and counts them; the always-on divergence
 guard never commits a non-finite iterate (the round is skipped and the lr
 backs off by `LR_BACKOFF`).  Both are no-ops on clean rounds.
+
+Return faults (``spec.fault_profile``, `repro_torch.faults`): NaN/inf
+uploads, stale-update replay and a corrupted parity contribution enter the
+round as two more per-round inputs, drawn a block at a time from a stream
+of their own (``fl.seed + 7717``, kept in the `RunState`), so they never
+shift the delays; a block's fault codes go to the device once, as
+tensors.  Under stale replay every round takes a second masked sum at the
+previous iterate over the stale rows, whatever the codes say, so no round
+reads the codes on the host.
 """
 from __future__ import annotations
 
@@ -80,6 +89,7 @@ from repro_torch.core.delay_model import (mec_network, packet_bits,
 from repro_torch.core.load_allocation import vectorized_grid_width
 from repro_torch.core.run_state import RunState, pack_state, unpack_state
 from repro_torch.device import resolve_device
+from repro_torch.faults import inject as finject
 from repro_torch.kernels import ops
 from repro_torch.net.channel import CHANNEL_PROFILES
 from repro_torch.net.estimator import (AdaptiveSchedule,
@@ -147,14 +157,22 @@ class MultiFedResult:
         return (self.wall_clock.mean(axis=0), self.wall_clock.std(axis=0))
 
 
-def guard_and_sum(g, ret, guard: bool):
+def guard_and_sum(g, ret, guard: bool, bad=None):
     """((q, c) returned-masked sum of the (rows, q, c) gradients `g`,
     int32 count of masked contributions).
 
+    `bad` (rows,) carries injected fault values: a non-finite entry
+    replaces the whole gradient row of a client that returned (a client
+    past the deadline uploads nothing, corrupt or not); finite entries
+    leave rows untouched (a `where`, never an add, so -0.0 survives).
     With `guard` every non-finite gradient row is zeroed out of the sum and
     counted when its client returned; on an all-finite round this is a
     no-op (``where(True, g, 0) == g``).
     """
+    if bad is not None:
+        live_bad = torch.where(ret > 0.0, bad, 0.0)
+        g = torch.where(torch.isfinite(live_bad)[:, None, None], g,
+                        live_bad[:, None, None])
     if not guard:
         return (aggregation.masked_gradient_sum(g, ret),
                 torch.zeros((), dtype=torch.int32, device=g.device))
@@ -179,7 +197,7 @@ def build_step(static: dict):
     """One round ``step(consts, carry, inp) -> (carry, out)``.
 
     `static`: scheme (step kind), n, n_wait, l2, m, l, guard, fused,
-    fused_embed, channel.
+    fused_embed, channel, faults, stale.
     `consts`: gx (rows, L, q), gy (rows, L, c), gmask (rows, L), ret_tail
     (rows - n,); coded adds t_star () and active (n,) and, when unfused,
     par_x (u, q) / par_y (u, c), and when fused live_rows (l_max, u), the
@@ -200,6 +218,14 @@ def build_step(static: dict):
     sub-block's wait count as a host int.  Under the static profile
     `active` is all ones and every extra operation is an IEEE no-op, so
     the trajectory is the stationary one bit for bit.
+    With ``faults`` (`repro_torch.faults`) two fault inputs ride at the END
+    of ``inp``, for every step kind: ``(..., fcode, fpar)``, the round's
+    (n,) int32 fault codes and its () float32 corrupted-parity flag.  The
+    fused coded parity row (the first pseudo-row) and the unfused coded
+    parity gradient corrupt on ``fpar``.  With ``stale`` (stale-update
+    replay) the carry grows the iterate the round started from,
+    ``(theta, lr_scale, theta_prev)``, and the round takes a second masked
+    sum at theta_prev over the stale rows (a second gradient launch).
     ``out`` is ``(t_round, n_ret, n_masked, skipped)``, 0-dim tensors.
     """
     scheme = static["scheme"]
@@ -212,9 +238,16 @@ def build_step(static: dict):
     fused = static["fused"]
     fused_embed = static["fused_embed"]
     channel = static["channel"]
+    faults = static["faults"]
+    stale = static["stale"]
 
     def step(consts, carry, inp):
-        theta, lr_scale = carry
+        if stale:
+            theta, lr_scale, theta_prev = carry
+        else:
+            theta, lr_scale = carry
+        if faults:
+            *inp, fcode, fpar = inp
         gmask = consts["gmask"]
         if scheme == "adaptive_coded":
             t_row, lr, active, t_star_r, block = inp
@@ -274,19 +307,56 @@ def build_step(static: dict):
         # ret_tail covers the pseudo-client rows: the always-active parity
         # row of the fused coded tensor
         ret = torch.cat([ret_real.to(torch.float32), consts["ret_tail"]])
-        if fused_embed:
-            g = aggregation.fused_embed_client_gradients(
-                consts["gx"], consts["gy"], consts["omega"], consts["delta"],
-                theta, mask=gmask, parity_phi=consts.get("pphi"),
-                live_rows=consts.get("live_rows"))
+        tail = consts["ret_tail"]
+        bad = None
+        if faults:
+            # the injected value of each row: NaN/inf garbage where the
+            # code says so, 0.0 (the row untouched) where clean; the fused
+            # coded parity pseudo-row corrupts on the round's flag
+            nan = torch.full_like(fpar, math.nan)
+            bad_client = torch.where(
+                fcode == finject.CODE_NAN, nan,
+                torch.where(fcode == finject.CODE_INF,
+                            torch.full_like(fpar, math.inf), 0.0))
+            tail_bad = torch.zeros_like(tail)
+            if fused and scheme in ("coded", "adaptive_coded") \
+                    and len(tail):
+                tail_bad = torch.cat([torch.where(fpar > 0, nan, 0.0)[None],
+                                      tail_bad[1:]])
+            bad = torch.cat([bad_client, tail_bad])
+
+        def sum_at(th, ret_v):
+            if fused_embed:
+                g = aggregation.fused_embed_client_gradients(
+                    consts["gx"], consts["gy"], consts["omega"],
+                    consts["delta"], th, mask=gmask,
+                    parity_phi=consts.get("pphi"),
+                    live_rows=consts.get("live_rows"))
+            else:
+                g = aggregation.batched_client_gradients(
+                    consts["gx"], consts["gy"], th, mask=gmask,
+                    live_rows=consts.get("live_rows"))
+            return guard_and_sum(g, ret_v, guard, bad)
+
+        if stale:
+            # stale-replay clients return their gradient at the PREVIOUS
+            # iterate: the returned mask splits into fresh and stale rows,
+            # and a second masked sum runs at theta_prev (the parity row is
+            # server-side and always fresh)
+            stale_f = (fcode == finject.CODE_STALE).to(torch.float32)
+            stale_full = torch.cat([stale_f, torch.zeros_like(tail)])
+            g_fresh, m_fresh = sum_at(theta, ret * (1.0 - stale_full))
+            g_stale, m_stale = sum_at(theta_prev, ret * stale_full)
+            g_sum = g_fresh + g_stale
+            n_masked = m_fresh + m_stale
         else:
-            g = aggregation.batched_client_gradients(
-                consts["gx"], consts["gy"], theta, mask=gmask,
-                live_rows=consts.get("live_rows"))
-        g_sum, n_masked = guard_and_sum(g, ret, guard)
+            g_sum, n_masked = sum_at(theta, ret)
         if scheme == "coded" and not fused:
             g_par = aggregation.coded_gradient(consts["par_x"],
                                                consts["par_y"], theta)
+            if faults:
+                par_bad = torch.where(fpar > 0, math.nan, 0.0)
+                g_par = torch.where(torch.isfinite(par_bad), g_par, par_bad)
             if guard:
                 par_ok = torch.isfinite(g_par).all()
                 n_masked = n_masked + (~par_ok).to(torch.int32)
@@ -299,9 +369,28 @@ def build_step(static: dict):
         theta_new = torch.where(ok, theta_upd, theta)
         lr_scale_new = torch.where(ok, lr_scale, lr_scale * LR_BACKOFF)
         skipped = (~ok).to(torch.int32)
-        return (theta_new, lr_scale_new), (t_round, n_ret, n_masked, skipped)
+        carry_new = ((theta_new, lr_scale_new, theta) if stale
+                     else (theta_new, lr_scale_new))
+        return carry_new, (t_round, n_ret, n_masked, skipped)
 
     return step
+
+
+def run_rounds(step, consts, carry, xs, eval_at=None):
+    """The reference's ``lax.scan`` as a Python loop: one `build_step` step
+    a round from `carry`, on the device.  `xs` holds the step's per-round
+    inputs (see `build_step`), each a (K, ...) tensor on the device or a
+    host list: round k's ``inp`` is ``tuple(col[k] for col in xs)``.
+    ``eval_at(k, theta)`` sees each round's new iterate.  Returns the final
+    carry and the (K,) per-round columns (t_round, n_ret, n_masked,
+    skipped), still on the device."""
+    outs = []
+    for k in range(len(xs[0])):
+        carry, out = step(consts, carry, tuple(col[k] for col in xs))
+        outs.append(out)
+        if eval_at is not None:
+            eval_at(k, carry[0])
+    return carry, [torch.stack(col) for col in zip(*outs)]
 
 
 def _empty_sched(n: int) -> dict:
@@ -355,7 +444,9 @@ class Experiment:
     ``device`` defaults to the GPU; pass ``"cpu"`` to run the plain
     versions of the kernels.  ``parity_generators`` (n, u, l) replaces the
     coded family's own generator draw, ``rff_draw`` = (omega (d, q),
-    delta (q,)) the fused_embed path's own draw from ``spec.rff`` (see
+    delta (q,)) the fused_embed path's own draw from ``spec.rff``, and
+    ``secure_masks`` = (x masks (P, u, q), y masks (P, u, c)), one a
+    client pair, the secure-aggregation setup's own mask draws (see
     ``repro_torch.carry``).
 
     Prefer the entrypoint ``repro_torch.api.build_experiment``.
@@ -364,7 +455,8 @@ class Experiment:
     def __init__(self, spec: ExperimentSpec, x_stack, y_stack, *,
                  nodes: Optional[list] = None,
                  rng: Optional[np.random.Generator] = None,
-                 device=None, parity_generators=None, rff_draw=None):
+                 device=None, parity_generators=None, rff_draw=None,
+                 secure_masks=None):
         if not isinstance(spec, ExperimentSpec):
             raise TypeError(
                 f"spec must be an ExperimentSpec, got {type(spec).__name__}"
@@ -382,6 +474,15 @@ class Experiment:
         self.fused_coded = spec.fused_coded
         self.fused_embed = spec.fused_embed
         self.nonfinite_guard = bool(spec.nonfinite_guard)
+        # return faults (repro_torch.faults) enter the step through a
+        # stream of their own; the service-level knobs are not acted on
+        self.faults = spec.resolved_faults()
+        self.return_faults = (self.faults is not None
+                              and self.faults.has_return_faults)
+        self.stale_faults = (self.faults is not None
+                             and self.faults.stale_prob > 0.0)
+        self._fault_seed = fl_cfg.seed + 7717
+        self.secure_aggregation = spec.secure_aggregation
         self.checkpoint_every = spec.checkpoint_every
         self.scheme = spec.resolved_scheme
         self.scheme_obj = schemes.get_scheme(self.scheme)
@@ -432,6 +533,14 @@ class Experiment:
             None if parity_generators is None else torch.as_tensor(
                 parity_generators, dtype=torch.float32,
                 device=self.device).contiguous())
+        if secure_masks is not None and not self.secure_aggregation:
+            raise ValueError("secure_masks replaces the secure-aggregation "
+                             "setup's mask draws; the spec has "
+                             "secure_aggregation=False")
+        self.secure_masks = (None if secure_masks is None else tuple(
+            torch.as_tensor(m, dtype=torch.float32,
+                            device=self.device).contiguous()
+            for m in secure_masks))
         if self.fused_embed:
             self.n, self.l, self.d = self.x.shape
             self.q = spec.rff.q
@@ -506,9 +615,19 @@ class Experiment:
             else "scalar"
 
     # ------------------------------------------------------------- step consts
-    def build_consts(self) -> dict:
-        """Per-deployment tensors consumed by `build_step`'s step."""
-        gx, gy, gmask, tail = self.scheme_obj.grad_tensors(self)
+    def consts_point_len(self) -> int:
+        """Point-axis length of `build_consts()["gx"]`: shape arithmetic
+        only, so a sweep computes its grid-wide `l_target` without
+        building the tensors."""
+        return self.scheme_obj.consts_point_len(self)
+
+    def build_consts(self, l_target: Optional[int] = None) -> dict:
+        """Per-deployment tensors consumed by `build_step`'s step.
+        `l_target` pads the point axis to a common length, so that
+        deployments with other per-client loads run through one step
+        (`repro_torch.launch.sweep`); the padding is zero rows past the
+        live ones, which the round does not read."""
+        gx, gy, gmask, tail = self.scheme_obj.grad_tensors(self, l_target)
         consts = {
             "gx": gx, "gy": gy, "gmask": gmask,
             "ret_tail": torch.tensor(tail, dtype=torch.float32,
@@ -533,6 +652,8 @@ class Experiment:
             "fused": self.fused_coded,
             "fused_embed": self.fused_embed,
             "channel": self.channel is not None,
+            "faults": self.return_faults,
+            "stale": self.stale_faults,
         }
 
     def scheme_params_estimator_kwargs(self) -> dict:
@@ -590,27 +711,41 @@ class Experiment:
             self._step = build_step(self.step_static())
         return self._step
 
-    def _rounds(self, theta, lr_scale, xs, eval_at=None, consts=None):
-        """The reference's ``lax.scan`` as a Python loop: one `build_step`
-        step a round from the carry (theta, lr_scale), on the device.
-        `xs` holds the step's per-round inputs (see `build_step`), each a
-        (K, ...) tensor on the device or a host list: round k's ``inp`` is
-        ``tuple(col[k] for col in xs)``.  `consts` defaults to the
-        deployment's.  ``eval_at(k, theta)`` sees each round's new iterate.
+    def _carry0(self, theta, lr_scale, theta_prev=None) -> tuple:
+        """The step's carry: (theta, lr_scale), and theta_prev (theta where
+        none is given) under stale replay."""
+        carry = (theta, torch.tensor(float(lr_scale), dtype=torch.float32,
+                                     device=self.device))
+        if self.stale_faults:
+            carry = carry + (theta if theta_prev is None else theta_prev,)
+        return carry
+
+    def _rounds(self, theta, lr_scale, xs, eval_at=None, consts=None,
+                theta_prev=None):
+        """`run_rounds` of this deployment's step from the carry (theta,
+        lr_scale[, theta_prev]); `consts` defaults to the deployment's.
         Returns the final carry and the (K,) per-round columns (t_round,
         n_ret, n_masked, skipped), still on the device."""
         if consts is None:
             consts = self._get_consts()
-        step = self._get_step()
-        carry = (theta, torch.tensor(float(lr_scale), dtype=torch.float32,
-                                     device=self.device))
-        outs = []
-        for k in range(len(xs[0])):
-            carry, out = step(consts, carry, tuple(col[k] for col in xs))
-            outs.append(out)
-            if eval_at is not None:
-                eval_at(k, carry[0])
-        return carry, [torch.stack(col) for col in zip(*outs)]
+        return run_rounds(self._get_step(), consts,
+                          self._carry0(theta, lr_scale, theta_prev), xs,
+                          eval_at)
+
+    def _fault_rows(self, state: RunState, rounds: int):
+        """`rounds` rows of fault inputs from the state's fault stream, as
+        device tensors: ``(xs_extra, new_stream_state)``, ``((), the
+        state's)`` when return faults are off.  The stream is seeded from
+        ``fl.seed + 7717``, apart from the delay and channel-trace streams,
+        so turning faults on never shifts the network a run faces."""
+        if not self.return_faults:
+            return (), state.fault_rng_state
+        frng = np.random.default_rng()
+        frng.bit_generator.state = state.fault_rng_state
+        fcodes, fpar = finject.sample_fault_rows(self.faults, frng, rounds,
+                                                 self.n)
+        return ((torch.from_numpy(fcodes).to(self.device),
+                 self._device(fpar)), frng.bit_generator.state)
 
     def init_state(self, iterations: int, *,
                    n_realizations: Optional[int] = None,
@@ -656,18 +791,29 @@ class Experiment:
         if collect:
             losses = np.zeros(0, np.float64)
             accs = np.zeros(0, np.float64)
+        theta = torch.zeros(lead + (self.q, self.c), dtype=torch.float32,
+                            device=self.device)
+        # stale replay needs the previous iterate in the carry; a
+        # multi_channel block is a whole realization, so its theta_prev is
+        # block-local and never lives in the state
+        theta_prev = (theta.clone() if self.stale_faults
+                      and mode != "multi_channel" else None)
+        fault_rng_state = None
+        if self.return_faults:
+            fault_rng_state = np.random.default_rng(
+                (self._fault_seed,)).bit_generator.state
         return RunState(
             mode=mode, iterations=iterations, rounds_done=0,
             realizations_done=0, n_realizations=R, collect=bool(collect),
-            theta=torch.zeros(lead + (self.q, self.c), dtype=torch.float32,
-                              device=self.device),
+            theta=theta,
             rng_state=self.rng.bit_generator.state, trace_call=trace_call,
             trace=trace, est=est, controls=controls,
             t_rounds=np.zeros(acc, np.float64),
             n_ret=np.zeros(acc, np.int32), losses=losses, accs=accs,
             sched=sched, lr_scale=lr_scale,
             n_masked=np.zeros(acc, np.int64),
-            skipped=np.zeros(acc, np.int64))
+            skipped=np.zeros(acc, np.int64), theta_prev=theta_prev,
+            fault_rng_state=fault_rng_state)
 
     def run_block(self, state: RunState, n_rounds: Optional[int] = None, *,
                   eval_fn: Optional[Callable] = None,
@@ -792,8 +938,10 @@ class Experiment:
                 if it % eval_every == 0 or it == state.iterations - 1:
                     loss, acc = eval_fn(theta)
                     loss_b[k], acc_b[k] = float(loss), float(acc)
-        carry, cols = self._rounds(state.theta, state.lr_scale, xs, eval_at,
-                                   consts)
+        fault_xs, fault_rng_new = self._fault_rows(state, K)
+        carry, cols = self._rounds(state.theta, state.lr_scale,
+                                   xs + fault_xs, eval_at, consts,
+                                   state.theta_prev)
         t_rounds, n_ret, n_masked, skipped = (c.cpu().numpy() for c in cols)
         if state.collect:
             losses = np.concatenate([state.losses, loss_b])
@@ -809,7 +957,9 @@ class Experiment:
             n_masked=np.concatenate(
                 [state.n_masked, n_masked.astype(np.int64)]),
             skipped=np.concatenate(
-                [state.skipped, skipped.astype(np.int64)]))
+                [state.skipped, skipped.astype(np.int64)]),
+            theta_prev=carry[2] if self.stale_faults else None,
+            fault_rng_state=fault_rng_new)
 
     def _block_multi(self, state: RunState, rng, K: int, lrs) -> RunState:
         """K rounds of every stationary realization: one draw of R * K
@@ -818,12 +968,21 @@ class Experiment:
         gradient launch a realization a round)."""
         R = int(state.n_realizations)
         times = self._delays(rng, R * K).reshape(R, K, self.n)
-        thetas, scales, cols = [], [], []
+        # R * K fault rows, as the reference's vmapped scan takes them
+        fault_xs, fault_rng_new = self._fault_rows(state, R * K)
+        fault_xs = tuple(col.reshape((R, K) + col.shape[1:])
+                         for col in fault_xs)
+        thetas, scales, prevs, cols = [], [], [], []
         for r in range(R):
-            carry, cols_r = self._rounds(state.theta[r], state.lr_scale[r],
-                                         (times[r], lrs))
+            carry, cols_r = self._rounds(
+                state.theta[r], state.lr_scale[r],
+                (times[r], lrs) + tuple(col[r] for col in fault_xs),
+                theta_prev=(None if state.theta_prev is None
+                            else state.theta_prev[r]))
             thetas.append(carry[0])
             scales.append(carry[1])
+            if self.stale_faults:
+                prevs.append(carry[2])
             cols.append(cols_r)
         t_rounds, n_ret, n_masked, skipped = (
             torch.stack(col).cpu().numpy() for col in zip(*cols))
@@ -837,7 +996,9 @@ class Experiment:
             n_masked=np.concatenate(
                 [state.n_masked, n_masked.astype(np.int64)], axis=1),
             skipped=np.concatenate(
-                [state.skipped, skipped.astype(np.int64)], axis=1))
+                [state.skipped, skipped.astype(np.int64)], axis=1),
+            theta_prev=torch.stack(prevs) if self.stale_faults else None,
+            fault_rng_state=fault_rng_new)
 
     def _block_multi_channel(self, state: RunState, rng) -> RunState:
         """One full traced realization per block: a fresh trace stream at
@@ -858,9 +1019,11 @@ class Experiment:
         # reference's `last_schedule`
         sched_new = (state.sched if seg is None
                      else _append_sched(_empty_sched(self.n), seg))
+        fault_xs, fault_rng_new = self._fault_rows(state, T)
         carry, cols = self._rounds(
             torch.zeros((self.q, self.c), dtype=torch.float32,
-                        device=self.device), 1.0, xs, consts=consts)
+                        device=self.device), 1.0, xs + fault_xs,
+            consts=consts)
         t_rounds, n_ret, n_masked, skipped = (c.cpu().numpy() for c in cols)
         theta = state.theta.clone()
         theta[r] = carry[0]
@@ -876,7 +1039,8 @@ class Experiment:
             n_masked=np.concatenate(
                 [state.n_masked, n_masked.astype(np.int64)[None]]),
             skipped=np.concatenate(
-                [state.skipped, skipped.astype(np.int64)[None]]))
+                [state.skipped, skipped.astype(np.int64)[None]]),
+            fault_rng_state=fault_rng_new)
 
     # ---------------------------------------------------- checkpoint/restore
     def save_state(self, path: str, state: RunState) -> str:
@@ -1104,6 +1268,22 @@ class Experiment:
                                     n_realizations=n_realizations)
         state = self._drive(state, checkpoint_dir)
         return self.finish(state, eval_fn)
+
+    # ------------------------------------------------------------------ sweep
+    def sweep(self, *, profiles: dict, iterations: int, realizations: int,
+              schemes: Optional[tuple] = None):
+        """Sweep this experiment's data over heterogeneity profiles: the
+        front end of `repro_torch.launch.sweep.run_sweep`, replaying this
+        spec (scheme, training config, options) across `profiles`
+        ({name: FLConfig-override dict}) through one step a scheme, on
+        this experiment's device.  `schemes` defaults to this experiment's
+        scheme alone."""
+        from repro_torch.launch import sweep as sweep_mod
+        return sweep_mod.run_sweep(
+            self.x, self.y, profiles=profiles, train_cfg=self.train,
+            iterations=iterations, realizations=realizations,
+            schemes=schemes or (self.scheme,), base_spec=self.spec,
+            device=self.device)
 
     # ---------------------------------------------------------- legacy engine
     def _run_legacy(self, iterations: int, times_all: np.ndarray,

@@ -15,11 +15,14 @@ everything a checkpoint needs to resume it bit-identically after a kill:
     the adaptive control values (loads / deadline / wait count) in effect
     and the adaptive schedule record,
   * the divergence guard's lr backoff scale and the per-round
-    masked-return / skipped-round accumulators (`FedResult.health`).
+    masked-return / skipped-round accumulators (`FedResult.health`),
+  * with return faults, the fault stream's bit-generator state, and under
+    stale replay the iterate the next round's stale rows read
+    (``theta_prev``, a tensor on the experiment's device).
 
-The reference's state also carries the stale-fault iterate and fault
-stream, and the hierarchical tier's sampling stream.  The port runs
-neither yet: those fields round-trip but are not read.
+The reference's state also carries the hierarchical tier's sampling
+stream; the port does not run that tier yet: the field round-trips but is
+not read.
 
 Modes: ``"single"`` (one trajectory, blocks advance the round cursor),
 ``"multi"`` (stationary `run_multi`, blocks advance all realizations'
@@ -99,8 +102,9 @@ class RunState:
                                       # () for single / (R,) for multi
     n_masked: Optional[np.ndarray] = None  # per-round masked returns
     skipped: Optional[np.ndarray] = None   # per-round 0/1 divergence skips
-    theta_prev: Any = None            # stale-fault iterate (not ported)
-    fault_rng_state: Optional[dict] = None  # fault stream (not ported)
+    theta_prev: Any = None            # previous-round iterate (a tensor,
+                                      # only under stale faults)
+    fault_rng_state: Optional[dict] = None  # fault-stream RNG (PCG64)
     sample_rng_state: Optional[dict] = None  # hier sampling (not ported)
 
     def __post_init__(self):

@@ -28,7 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, encoding, load_allocation, privacy
+from repro_torch.core import (aggregation, encoding, load_allocation,
+                              privacy, secure_agg)
 from repro_torch.core.delay_model import ideal_round_time, packet_bits
 
 STEP_KINDS = ("naive", "greedy", "coded", "ideal", "adaptive_coded",
@@ -52,11 +53,20 @@ class Scheme:
     def setup(self, exp) -> None:
         """Host-side deployment setup; mutates the Experiment in place."""
 
-    def grad_tensors(self, exp):
+    def consts_point_len(self, exp) -> int:
+        """Point-axis length of `grad_tensors`' gx: shape arithmetic only,
+        so a sweep computes its grid-wide l_target without building the
+        tensors."""
+        return exp.l
+
+    def grad_tensors(self, exp, l_target=None):
         """(gx, gy, gmask, ret_tail) — the dense client gradient tensors.
 
         ret_tail lists the returned-mask entries of any pseudo-client rows
-        appended past the n real clients.
+        appended past the n real clients.  `l_target` pads the point axis
+        to a common length (`repro_torch.launch.sweep`); full-load schemes
+        are at their length already (`consts_point_len` is l), and ignore
+        it, as in the reference.
         """
         gmask = torch.ones((exp.n, exp.l), dtype=torch.float32,
                            device=exp.device)
@@ -179,7 +189,14 @@ class CodedScheme(Scheme):
         x_enc = exp.embedded_x() if exp.fused_embed else exp.x
         stacked = encoding.encode_local_batched(g_stack, x_enc, exp.y,
                                                 exp.w_stack)
-        exp.parity = encoding.aggregate_parity_stacked(stacked)
+        if exp.secure_aggregation:
+            # paper §VI future work: the server sees only masked uploads;
+            # the pairwise masks cancel in their sum (core/secure_agg.py)
+            uploads = secure_agg.masked_uploads(
+                fl.seed + 1234, stacked, pair_masks=exp.secure_masks)
+            exp.parity = secure_agg.secure_aggregate(uploads)
+        else:
+            exp.parity = encoding.aggregate_parity_stacked(stacked)
         # one-time parity upload overhead: clients upload u*(q+c) scalars
         # in parallel; expected transmissions 1/(1-p) (paper Fig 4a inset)
         bits = packet_bits(fl, exp.u * (exp.q + exp.c))
@@ -206,24 +223,39 @@ class CodedScheme(Scheme):
         exp._sub_y_pad = exp.y[clients, rows] * mask[:, :, None]
         exp._grad_mask = mask                     # (n, l_max) row validity
 
-    def grad_tensors(self, exp):
+    def consts_point_len(self, exp) -> int:
+        l_max = int(exp._sub_x_pad.shape[1])
+        return max(l_max, exp.u) if exp.fused_coded else l_max
+
+    def grad_tensors(self, exp, l_target=None):
+        l_max = exp._sub_x_pad.shape[1]
         if not exp.fused_coded:
-            # the coded gradient is a separate launch over par_x / par_y
-            return exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask, []
+            # the coded gradient is a separate launch over par_x / par_y;
+            # padding to l_target is zero rows past l_max, which the round
+            # skips (live_rows (l_max, l_max), the launch plan unpadded)
+            gx, gy, gmask = exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask
+            exp._live_rows = (l_max, l_max)
+            if l_target is not None and l_target > l_max:
+                pad = l_target - l_max
+                gx = torch.nn.functional.pad(gx, (0, 0, 0, pad))
+                gy = torch.nn.functional.pad(gy, (0, 0, 0, pad))
+                gmask = torch.nn.functional.pad(gmask, (0, pad))
+            return gx, gy, gmask, []
         if exp.fused_embed:
             # raw client rows; the embedded parity block rides in as the
             # `pphi` const the fused kernel reads on the parity row
             gx, gy, gmask, exp._pphi_const = \
                 aggregation.fused_embed_client_parity_tensors(
                     exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask,
-                    exp.parity.x, exp.parity.y, pnr_c=0.0)
+                    exp.parity.x, exp.parity.y, pnr_c=0.0,
+                    l_target=l_target)
         else:
             gx, gy, gmask = aggregation.fused_client_parity_tensors(
                 exp._sub_x_pad, exp._sub_y_pad, exp._grad_mask,
-                exp.parity.x, exp.parity.y, pnr_c=0.0)
+                exp.parity.x, exp.parity.y, pnr_c=0.0, l_target=l_target)
         # past l_max client rows and u parity rows the tensors are zero
-        # padding, which the kernel skips
-        exp._live_rows = (exp._sub_x_pad.shape[1], exp.parity.x.shape[0])
+        # padding (l_target's too), which the kernel skips
+        exp._live_rows = (l_max, exp.parity.x.shape[0])
         return gx, gy, gmask, [1.0]   # the always-active parity pseudo-row
 
     def extra_consts(self, exp) -> dict:
@@ -233,10 +265,9 @@ class CodedScheme(Scheme):
             "active": torch.from_numpy(
                 (exp.loads > 0).astype(np.float32)).to(exp.device),
         }
-        if exp.fused_coded:
-            consts["live_rows"] = exp._live_rows
-            if exp.fused_embed:
-                consts["pphi"] = exp._pphi_const
+        consts["live_rows"] = exp._live_rows
+        if exp.fused_coded and exp.fused_embed:
+            consts["pphi"] = exp._pphi_const
         if not exp.fused_coded:
             consts["par_x"] = exp.parity.x
             consts["par_y"] = exp.parity.y
@@ -312,14 +343,17 @@ class AdaptiveCodedScheme(CodedScheme):
         exp._adapt_x = exp.x[clients, perm]
         exp._adapt_y = exp.y[clients, perm]
 
-    def grad_tensors(self, exp):
+    def consts_point_len(self, exp) -> int:
+        return max(exp.l, exp.u)
+
+    def grad_tensors(self, exp, l_target=None):
         # full-length tensors; the per-block prefix mask (not baked into
         # the data) selects the processed points
         gx, gy, gmask = aggregation.fused_client_parity_tensors(
             exp._adapt_x, exp._adapt_y,
             torch.from_numpy(self._prefix_mask(exp, exp.loads)).to(
                 exp.device),
-            exp.parity.x, exp.parity.y, pnr_c=0.0)
+            exp.parity.x, exp.parity.y, pnr_c=0.0, l_target=l_target)
         exp._live_rows = (exp.l, exp.parity.x.shape[0])
         return gx, gy, gmask, [1.0]
 

@@ -170,25 +170,24 @@ def test_spec_round_trip_matches_reference(kw):
 
 # (id, spec fields, the feature the refusal names, a ported feature it
 # must no longer name): the ported ones ride along with a missing feature
+# (the hierarchical tier or the client mesh, the two the port lacks)
 _UNSUPPORTED = [
-    ("channel dynamics", dict(channel_profile="static",
-                              secure_aggregation=True),
-     "secure aggregation", "channel"),
-    ("fault injection", dict(fault_profile="none"), "fault injection", None),
+    ("channel dynamics", dict(channel_profile="static", mesh=2),
+     "client-mesh", "channel"),
+    ("fault injection", dict(fault_profile="crash_loop", mesh=2),
+     "client-mesh", "fault injection"),
     ("hierarchical", dict(hier_shards=2), "hierarchical", None),
     ("client-mesh", dict(mesh=2), "client-mesh", None),
-    ("secure aggregation", dict(secure_aggregation=True),
-     "secure aggregation", None),
-    ("adaptive", dict(scheme="adaptive_coded", adapt_every=2,
-                      secure_aggregation=True), "secure aggregation",
-     "adaptive"),
-    ("fused_embed", dict(fused_embed=True, rff=t_config.RFFConfig(q=8),
-                         secure_aggregation=True), "secure aggregation",
-     "fused_embed"),
+    ("secure aggregation", dict(secure_aggregation=True, mesh=2),
+     "client-mesh", "secure aggregation"),
+    ("adaptive", dict(scheme="adaptive_coded", adapt_every=2, mesh=2),
+     "client-mesh", "adaptive"),
+    # fused_embed combines with neither missing feature (a spec refuses it
+    # with a mesh or the hierarchical tier): the mesh refusal alone
+    ("fused_embed", dict(mesh=2), "client-mesh", "fused_embed"),
     ("fused_coded=False", dict(fused_coded=False, mesh=2), "client-mesh",
      "fused_coded"),
-    ("legacy", dict(engine="legacy", secure_aggregation=True),
-     "secure aggregation", "legacy"),
+    ("legacy", dict(engine="legacy", mesh=2), "client-mesh", "legacy"),
 ]
 
 
@@ -204,6 +203,33 @@ def test_unsupported_feature_raises_at_build(kw, feature, ported):
     if ported is not None:
         assert ported not in str(info.value)
         assert ported not in " ".join(t_config.unsupported_features(spec))
+
+
+_PORTED = [
+    ("fault injection", dict(fault_profile="chaos")),
+    ("secure aggregation", dict(secure_aggregation=True)),
+    ("secure unfused with faults", dict(secure_aggregation=True,
+                                        fused_coded=False,
+                                        fault_profile="byzantine_lite")),
+    ("fused_embed secure with faults",
+     dict(fused_embed=True, rff=t_config.RFFConfig(q=8),
+          secure_aggregation=True, fault_profile="corrupt_parity")),
+    ("channel with faults", dict(channel_profile="churn",
+                                 fault_profile="flaky_clients")),
+]
+
+
+@pytest.mark.parametrize("kw", [k for _, k in _PORTED],
+                         ids=[i for i, _ in _PORTED])
+def test_ported_features_build_and_run(kw):
+    spec = t_config.ExperimentSpec(fl=t_config.FLConfig(n_clients=4),
+                                   **kw)
+    assert t_config.unsupported_features(spec) == []
+    rng = np.random.default_rng(1)
+    xs = rng.normal(size=(4, 6, 8)).astype(np.float32)
+    ys = rng.normal(size=(4, 6, 2)).astype(np.float32)
+    res = t_api.build_experiment(spec, xs, ys, device="cpu").run(3)
+    assert len(res.history) == 3 and torch.isfinite(res.theta).all()
 
 
 def test_default_device_is_the_gpu():
