@@ -103,7 +103,30 @@ Phases, each printed as one JSON object per line:
              from the same generator position (wall clock and returned
              counts equal, theta bit for bit); host_seconds beside the
              looped time;
- 18. serve:  the model zoo's serving path, qwen3-4b at full width (36
+ 18. telemetry: run telemetry (repro_torch.obs) at MNIST-RFF width: a
+             coded deployment built inside collecting(), 20 rounds with
+             checkpoint_every 5 and a journal under the git-ignored
+             build/chip_smoke_obs; theta, wall clock and returned counts
+             bit-identical to a telemetry-off run from the same generator
+             position, history_from_journal equal to the run's history, two
+             same-seed journals byte-identical, every REQUIRED_SPANS name
+             recorded, 20 linreg_grad_masked launches; the span totals,
+             attribution's top stragglers and comp_share_mean, the warm
+             ms/round with spans off and on in turns, the head of
+             render_report; then launch.report.run_telemetry on the card at
+             its defaults: its three invariants, and overhead_ratio beside
+             the reference's ceiling of 1.05 (printed, not a gate);
+ 19. service: launch.service.ExperimentService at MNIST-RFF width: a coded
+             and a naive job (20 rounds, checkpoint_every 5, spans on, so
+             each is journaled) through an uninterrupted control service,
+             and through a service dropped after 3 steps and resumed by a
+             fresh one on its root (build/chip_smoke_service): theta,
+             history and events.jsonl bytes equal to the control's; 80
+             linreg_grad_masked launches; health_report's block and
+             checkpoint-save times per block; then
+             launch.resilience.run_resilience on the card at the
+             reference's defaults, validate_resilience == [];
+ 20. serve:  the model zoo's serving path, qwen3-4b at full width (36
              layers, d_model 2560, bf16) from seeded random weights: 8
              requests of 4096-token prompts (make_batch), 64 greedy tokens
              each (max_seq 4160, window 0) through
@@ -112,13 +135,13 @@ Phases, each printed as one JSON object per line:
              its byte bound, tokens/s; then torch.profiler over 4 warm
              decode steps after a second prefill: device busy and idle
              share of a step, the top kernels, and gqa_decode's share;
- 19. serve_check: full width at 4 layers, float32: the last decode step's
+ 21. serve_check: full width at 4 layers, float32: the last decode step's
              logits against the last-position logits of a prefill over
              prompt + generated tokens, at window 0 and at window 1024 over
              a 4096-token prompt (a rolling cache);
- 20. serve_cpu: the qwen3-4b smoke variant served on the card and on the
+ 22. serve_cpu: the qwen3-4b smoke variant served on the card and on the
              CPU (plain versions): identical tokens, logits within tolerance;
- 21. kernel: each kernel against its plain PyTorch version on the card, at
+ 23. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
              tile multiple; times with CUDA events.  linreg_grad_masked at
@@ -150,7 +173,7 @@ Phases, each printed as one JSON object per line:
              by events, on the device (device_ms, library_device_ms) and on
              the host (host_ms: the wrapper's enqueue), beside SDPA with its
              mask made once outside the timed calls;
- 22. the kernels table, then the final line
+ 24. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -193,6 +216,12 @@ SWEEP_R = 4                       # the sweep's realizations
 # the resume phase's checkpoints, under the git-ignored build/
 CKPT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
 FAULT_CKPT_DIR = CKPT_DIR.parent / "chip_smoke_fault_ckpt"
+OBS_DIR = CKPT_DIR.parent / "chip_smoke_obs"          # telemetry's run dirs
+SERVICE_DIR = CKPT_DIR.parent / "chip_smoke_service"  # the services' roots
+OBS_EVERY = 5             # checkpoint_every of the telemetry and service jobs
+TELEMETRY_PAIRS = 3       # spans-off / spans-on warm runs timed in turns
+REPORT_LINES = 14         # first lines of render_report printed
+SERVICE_DROP_AFTER = 3    # service steps before the drop
 PEAK_FLOPS = 67e12        # H100 SXM float32, outside the tensor cores
 PEAK_BF16 = 989e12        # H100 SXM bf16 tensor cores, dense
 PEAK_TF32 = 495e12        # H100 SXM TF32 tensor cores, dense
@@ -1874,6 +1903,250 @@ def sweep_path(torch, dev, state) -> None:
     _release(torch)
 
 
+def telemetry_path(torch, dev, state) -> None:
+    """Run telemetry at MNIST-RFF width: a coded deployment built inside
+    `collecting()`, run with checkpoints and a journal, against a
+    telemetry-off run and a second journaled run from the same generator
+    position; spans, attribution, the report, the warm ms/round with
+    spans off and on in turns; then `run_telemetry` at its defaults."""
+    import shutil
+
+    from repro_torch.api import (build_experiment, histories_equal,
+                                 history_from_journal, obs_spans)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import report
+    from repro_torch.obs.events import EVENTS_NAME
+
+    spec = dataclasses.replace(state["spec"], checkpoint_every=OBS_EVERY)
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    run_dir = OBS_DIR / "run"
+    ops.reset_launch_counts()
+    with obs_spans.collecting():
+        t0 = time.perf_counter()
+        exp = build_experiment(spec, state["xs"], state["ys"], device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        start = exp.rng.bit_generator.state
+        before = dict(ops.LAUNCHES)
+        on = exp.run(ROUNDS, checkpoint_dir=str(OBS_DIR / "ckpt"),
+                     journal_dir=str(run_dir))
+        on_masked = (ops.LAUNCHES["linreg_grad_masked"]
+                     - before["linreg_grad_masked"])
+        attr = exp.attribution()
+        totals = obs_spans.totals()
+        obs_spans.write_json(str(run_dir / obs_spans.SPANS_NAME))
+    (run_dir / report.ATTR_NAME).write_text(
+        json.dumps(attr.to_dict(), indent=2, sort_keys=True) + "\n")
+    replay_ok = histories_equal(history_from_journal(str(run_dir)),
+                                on.history)
+    # telemetry off: the same deployment from the same generator position
+    exp.rng.bit_generator.state = start
+    off = exp.run(ROUNDS)
+    same = (bool(torch.equal(on.theta, off.theta))
+            and [h.wall_clock for h in on.history]
+            == [h.wall_clock for h in off.history]
+            and [h.returned for h in on.history]
+            == [h.returned for h in off.history])
+    # a second same-seed run journals the same bytes
+    exp.rng.bit_generator.state = start
+    with obs_spans.collecting():
+        exp.run(ROUNDS, journal_dir=str(OBS_DIR / "run2"))
+    same_bytes = ((run_dir / EVENTS_NAME).read_bytes()
+                  == (OBS_DIR / "run2" / EVENTS_NAME).read_bytes())
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / ROUNDS * 1e3
+
+    off_ms, on_ms = [], []
+    for k in range(TELEMETRY_PAIRS):
+        off_ms.append(timed(lambda: exp.run(ROUNDS)))
+        with obs_spans.collecting():
+            on_ms.append(timed(lambda: exp.run(
+                ROUNDS, journal_dir=str(OBS_DIR / f"warm{k}"))))
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    text = report.render_report(str(run_dir)).splitlines()
+    missing = [n for n in report.REQUIRED_SPANS if n not in totals]
+    emit({"phase": "telemetry", "rounds": ROUNDS,
+          "checkpoint_every": OBS_EVERY, "setup_s": setup_s,
+          "span_totals": totals,
+          "top_stragglers": attr.top_stragglers(),
+          "comp_share_mean": attr.to_dict()["comp_share_mean"],
+          "theta_rounds_identical_to_off": same,
+          "journal_replay_matches": replay_ok,
+          "journal_deterministic": same_bytes,
+          "journal_bytes": (run_dir / EVENTS_NAME).stat().st_size,
+          "warm_ms_per_round_off": off_ms, "warm_ms_per_round_on": on_ms,
+          "linreg_grad_masked_on_run": on_masked, "launches": launches,
+          "report_head": text[:REPORT_LINES]})
+    check(same, "telemetry: the telemetry-on run differs from the off run")
+    check(replay_ok, "telemetry: the journal does not replay the history")
+    check(same_bytes, "telemetry: two same-seed journals differ")
+    check(not missing, f"telemetry: spans {missing} never recorded")
+    check(totals["checkpoint/save"]["count"] == ROUNDS // OBS_EVERY,
+          f"telemetry: checkpoint/save {totals['checkpoint/save']}")
+    check(on_masked == ROUNDS, f"telemetry: linreg_grad_masked launched "
+          f"{on_masked} times in the {ROUNDS}-round run")
+    runs = 3 + 2 * TELEMETRY_PAIRS
+    check(launches["linreg_grad_masked"] == runs * ROUNDS,
+          f"telemetry: linreg_grad_masked launched "
+          f"{launches['linreg_grad_masked']} times in {runs} runs")
+    check(launches["parity_encode_batched"] == 2,
+          f"telemetry: parity_encode_batched launched "
+          f"{launches['parity_encode_batched']} times")
+    del exp, on, off
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+
+    # the reference's probe at its defaults, on the card
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    section = report.run_telemetry(device=dev)
+    probe_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    cfg = section["config"]
+    runs = 3 + 2 * cfg["repeats"]
+    emit({"phase": "telemetry", "probe": "run_telemetry",
+          "config": cfg, "seconds": probe_s,
+          "trajectory_bit_identical": section["trajectory_bit_identical"],
+          "journal_deterministic": section["journal_deterministic"],
+          "journal_replay_matches": section["journal_replay_matches"],
+          "disabled_seconds": section["disabled_seconds"],
+          "enabled_seconds": section["enabled_seconds"],
+          "overhead_ratio": section["overhead_ratio"],
+          "reference_ceiling": report.MAX_OVERHEAD_RATIO,
+          "span_totals": section["span_totals"], "launches": launches})
+    # the ratio is a measurement here, not a gate (host noise, PERF.md)
+    errs = report.validate_telemetry(section, max_overhead_ratio=math.inf)
+    check(errs == [], f"telemetry probe: {errs}")
+    check(launches["linreg_grad_masked"] == runs * cfg["iters"],
+          f"telemetry probe: linreg_grad_masked launched "
+          f"{launches['linreg_grad_masked']} times in {runs} runs of "
+          f"{cfg['iters']} rounds")
+
+
+def service_path(torch, dev, state) -> None:
+    """The experiment service at MNIST-RFF width: a coded and a naive job
+    (ROUNDS rounds, checkpoint_every OBS_EVERY, spans on) through an
+    uninterrupted control service, and through a service dropped after
+    SERVICE_DROP_AFTER steps and resumed by a fresh one on its root:
+    theta, history and journal bytes equal; then `run_resilience` at the
+    reference's defaults."""
+    import shutil
+
+    from repro_torch.api import (ExperimentService, histories_equal,
+                                 obs_spans)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import resilience
+    from repro_torch.obs.events import EVENTS_NAME
+
+    base = dataclasses.replace(state["spec"], checkpoint_every=OBS_EVERY)
+    jobs = {"coded": base, "naive": dataclasses.replace(base,
+                                                        scheme="naive")}
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+
+    def service(name):
+        svc = ExperimentService(str(SERVICE_DIR / name), device=dev)
+        runs = {rid: svc.submit(spec, state["xs"], state["ys"], ROUNDS,
+                                run_id=rid) for rid, spec in jobs.items()}
+        return svc, runs
+
+    ops.reset_launch_counts()
+    with obs_spans.collecting():
+        t0 = time.perf_counter()
+        control, _ = service("control")
+        torch.cuda.synchronize()
+        submit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        expect = control.run_until_complete()
+        control_s = time.perf_counter() - t0
+        control_masked = ops.LAUNCHES["linreg_grad_masked"]
+        dropped, _ = service("dropped")
+        stepped = [dropped.step() for _ in range(SERVICE_DROP_AFTER)]
+        del dropped                                      # the drop
+        fresh, runs = service("dropped")
+        resumed_at = {rid: run.state.rounds_done for rid, run in runs.items()}
+        got = fresh.run_until_complete()
+        totals = obs_spans.totals()
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    same = {}
+    for rid in jobs:
+        same[rid] = (bool(torch.equal(expect[rid].theta, got[rid].theta))
+                     and histories_equal(expect[rid].history,
+                                         got[rid].history)
+                     and (SERVICE_DIR / "control" / rid / EVENTS_NAME)
+                     .read_bytes()
+                     == (SERVICE_DIR / "dropped" / rid / EVENTS_NAME)
+                     .read_bytes())
+    timing = {}
+    for rid, rep in control.last_health.items():
+        t = rep["timing"]
+        timing[rid] = dict(t, block_ms_per_block=t["block_seconds"]
+                           / t["blocks_run"] * 1e3,
+                           ckpt_save_ms_per_block=t["ckpt_save_seconds"]
+                           / t["blocks_run"] * 1e3)
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    blocks = ROUNDS // OBS_EVERY
+    emit({"phase": "service", "jobs": list(jobs), "rounds": ROUNDS,
+          "checkpoint_every": OBS_EVERY, "submit_s": submit_s,
+          "control_s": control_s, "stepped_before_drop": stepped,
+          "resumed_at": resumed_at, "bit_identical": same,
+          "health_timing": timing,
+          "theta_finite": {rid: bool(torch.isfinite(got[rid].theta).all())
+                           for rid in jobs},
+          "span_totals": totals, "launches": launches})
+    check(all(same.values()), f"service: the resumed jobs differ from the "
+          f"control's: {same}")
+    check(all(bool(torch.isfinite(got[rid].theta).all()) for rid in jobs),
+          "service: theta is not finite")
+    check(resumed_at == {"coded": 2 * OBS_EVERY, "naive": OBS_EVERY},
+          f"service: resumed at {resumed_at}")
+    check(control_masked == len(jobs) * ROUNDS,
+          f"service: the control launched linreg_grad_masked "
+          f"{control_masked} times")
+    # control, then the dropped service's steps, then the resumed rest
+    want = 2 * len(jobs) * ROUNDS
+    check(launches["linreg_grad_masked"] == want,
+          f"service: linreg_grad_masked launched "
+          f"{launches['linreg_grad_masked']} times, expected {want}")
+    check(launches["parity_encode_batched"] == 2 * 3,
+          f"service: parity_encode_batched launched "
+          f"{launches['parity_encode_batched']} times in 3 coded builds")
+    check(all(t["blocks_run"] == blocks for t in timing.values()),
+          f"service: blocks run {timing}")
+
+    # the reference's resilience runner at its defaults, on the card
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    section = resilience.run_resilience(device=dev)
+    res_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    errs = resilience.validate_resilience(section)
+    svc = section["service"]
+    emit({"phase": "service", "probe": "run_resilience",
+          "config": section["config"], "seconds": res_s,
+          "coded_speedup_vs_naive": {
+              p: c["coded_speedup_vs_naive"]
+              for p, c in section["cases"].items()},
+          "host_seconds": {p: c["host_seconds"]
+                           for p, c in section["cases"].items()},
+          "health": {p: {v: c[v]["health"] for v in
+                         ("coded", "naive", "naive_unguarded")}
+                     for p, c in section["cases"].items()},
+          "crash_retries": svc["crash_retries"],
+          "service": svc, "errors": errs, "launches": launches})
+    check(errs == [], f"resilience: {errs}")
+    check(launches["linreg_grad_masked"] > 0,
+          "resilience: linreg_grad_masked never launched")
+    _release(torch)
+
+
 def _release(torch) -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2778,8 +3051,8 @@ def main() -> int:
     for phase in (cpu_twin, fused_embed_path, unfused_path, legacy_path,
                   encode_local_path, resume_path, multi_path, alloc_path,
                   quickstart_path, channel_path, adaptive_path, faults_path,
-                  secure_agg_path, sweep_path, serve_path, serve_check,
-                  serve_cpu):
+                  secure_agg_path, sweep_path, telemetry_path, service_path,
+                  serve_path, serve_check, serve_cpu):
         t0 = time.perf_counter()
         phase(torch, dev, state)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})

@@ -28,13 +28,29 @@ from repro_torch.core.schemes import (Scheme, get_scheme,  # noqa: F401
                                       registered_names)
 from repro_torch.net.channel import (CHANNEL_PROFILES,  # noqa: F401
                                      ChannelProfile)
+from repro_torch.obs import (Attribution, RunJournal,  # noqa: F401
+                             histories_equal, history_from_journal,
+                             load_events)
+from repro_torch.obs import spans as obs_spans  # noqa: F401
 
 __all__ = [
-    "ExperimentSpec", "Experiment", "FedResult", "MultiFedResult",
-    "RoundLog", "RunHealth", "RunState", "Scheme", "build_experiment",
-    "get_scheme", "grid_names", "register", "registered_names",
-    "CHANNEL_PROFILES", "ChannelProfile",
+    "ExperimentSpec", "Experiment", "ExperimentService", "FedResult",
+    "MultiFedResult", "RoundLog", "RunHealth", "RunState", "Scheme",
+    "build_experiment", "get_scheme", "grid_names", "register",
+    "registered_names", "CHANNEL_PROFILES", "ChannelProfile",
+    "Attribution", "RunJournal", "load_events", "history_from_journal",
+    "histories_equal", "obs_spans",
 ]
+
+
+def __getattr__(name):
+    # lazy: launch.service imports build_experiment from here, so a
+    # top-level import would be circular
+    if name == "ExperimentService":
+        from repro_torch.launch.service import ExperimentService
+        return ExperimentService
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,
                      nodes: Optional[list] = None,

@@ -70,6 +70,16 @@ shift the delays; a block's fault codes go to the device once, as
 tensors.  Under stale replay every round takes a second masked sum at the
 previous iterate over the stale rows, whatever the codes say, so no round
 reads the codes on the host.
+
+Telemetry (`repro_torch.obs`): with spans enabled, the setup, the solver,
+the parity encode, trace generation, each block of the step
+(``scan/compile`` for the first, ``scan/execute`` after: the port has no
+compiled scan, see `repro_torch.obs.spans`), checkpoint saves and
+restores are timed; a block's span syncs the device once before its
+clock stops.  The host delay arrays a block already drew are kept for
+`Experiment.attribution`, and ``run(journal_dir=...)`` journals each
+block's rounds after its checkpoint.  None of it draws or reads a value
+back, so a run is the same bits with telemetry on or off.
 """
 from __future__ import annotations
 
@@ -96,6 +106,7 @@ from repro_torch.net.estimator import (AdaptiveSchedule,
                                        OnlineChannelEstimator, plan_segment)
 from repro_torch.net.trace import (TraceState, generate_trace_block,
                                    sample_round_times_traced)
+from repro_torch.obs import spans as obs_spans
 
 #: divergence-guard learning-rate backoff per skipped round
 LR_BACKOFF = 0.5
@@ -475,7 +486,8 @@ class Experiment:
         self.fused_embed = spec.fused_embed
         self.nonfinite_guard = bool(spec.nonfinite_guard)
         # return faults (repro_torch.faults) enter the step through a
-        # stream of their own; the service-level knobs are not acted on
+        # stream of their own; the service-level knobs act in
+        # repro_torch.launch.service
         self.faults = spec.resolved_faults()
         self.return_faults = (self.faults is not None
                               and self.faults.has_return_faults)
@@ -570,10 +582,15 @@ class Experiment:
         self.parity = None
         self.setup_time = 0.0
         self.processed_idx = [np.arange(self.l) for _ in range(self.n)]
-        self.scheme_obj.setup(self)
+        # telemetry capture (repro_torch.obs): per-block host delay arrays
+        # kept only while spans are enabled, feeding `attribution()`
+        self._attr_blocks: "list[dict]" = []
+        with obs_spans.span("setup/experiment", sync=self.device):
+            self.scheme_obj.setup(self)
         self.privacy_eps = self.scheme_obj.privacy_budget(self)
         self._consts = None     # built lazily on the first run
         self._step = None
+        self._step_warm = False   # a block of the cached step has run
 
     def _rff_params(self, spec: ExperimentSpec, rff_draw):
         """(Omega (d, q), delta (q,)) of the fused_embed path: `rff_draw`
@@ -711,6 +728,31 @@ class Experiment:
             self._step = build_step(self.step_static())
         return self._step
 
+    def _block_span(self) -> "obs_spans.span":
+        """The span of one block of the cached step, the reference's
+        `_timed_scan`: ``scan/compile`` for the first block the step runs,
+        ``scan/execute`` for every later one.  It syncs the device before
+        its clock stops (once a block), so the time covers the block's
+        device work."""
+        name = "scan/execute" if self._step_warm else "scan/compile"
+        self._step_warm = True
+        return obs_spans.span(name, sync=self.device)
+
+    def _capture(self, times, active, seg=None) -> None:
+        """Keep one block's host delay arrays for `attribution` while
+        spans are on: the arrays the block already drew (no second draw,
+        no device read), with the adaptive plan's per-round deadlines or
+        wait counts."""
+        if not obs_spans.enabled():
+            return
+        block = {"times": np.asarray(times),
+                 "active": None if active is None else np.asarray(active)}
+        if seg is not None:
+            coded = self.step_kind == "adaptive_coded"
+            block["t_star_r"] = np.asarray(seg.t_star_r) if coded else None
+            block["n_wait_r"] = None if coded else np.asarray(seg.n_wait_r)
+        self._attr_blocks.append(block)
+
     def _carry0(self, theta, lr_scale, theta_prev=None) -> tuple:
         """The step's carry: (theta, lr_scale), and theta_prev (theta where
         none is given) under stale replay."""
@@ -762,6 +804,7 @@ class Experiment:
         iterations = int(iterations)
         if iterations < 1:
             raise ValueError(f"iterations={iterations} must be >= 1")
+        self._attr_blocks = []   # attribution covers the new run only
         if n_realizations is None:
             mode, R, lead, lr_scale = "single", None, (), 1.0
         else:
@@ -871,10 +914,14 @@ class Experiment:
         a block, never one a round."""
         return torch.from_numpy(np.asarray(arr, np.float32)).to(self.device)
 
+    def _draw_delays(self, rng, rounds: int) -> np.ndarray:
+        """(rounds, n) float64 delays on the host, one vectorized draw."""
+        return sample_round_times(self.nodes, np.asarray(self.loads, float),
+                                  rng, rounds)
+
     def _delays(self, rng, rounds: int) -> torch.Tensor:
         """(rounds, n) float32 delays on the device, one vectorized draw."""
-        return self._device(sample_round_times(
-            self.nodes, np.asarray(self.loads, float), rng, rounds))
+        return self._device(self._draw_delays(rng, rounds))
 
     def _traced_xs(self, trace, rng, lrs, r0: int, est=None,
                    controls=None):
@@ -884,15 +931,16 @@ class Experiment:
         the plan of those rounds first (`plan_segment`, advancing the
         estimator `est` from `controls`), whose deadlines and mask indices
         (adaptive_coded) or wait counts (adaptive_greedy) join the inputs.
-        Returns ``(xs, consts, seg)``: the deployment's consts with the
-        plan's mask stack, and the `SegmentPlan` (None when not adaptive).
+        Returns ``(xs, consts, seg, times)``: the deployment's consts with
+        the plan's mask stack, the `SegmentPlan` (None when not adaptive),
+        and the host array of the delays uploaded.
         """
         consts = self._get_consts()
         if not self.adaptive:
             times = sample_round_times_traced(
                 self.nodes, np.asarray(self.loads, float), rng, trace)
             return ((self._device(times), lrs, self._device(trace.active)),
-                    consts, None)
+                    consts, None, times)
         seg = plan_segment(self, est, trace, r0, r0 + trace.rounds,
                            controls, rng)
         xs = (self._device(seg.times), lrs, self._device(seg.active))
@@ -901,7 +949,7 @@ class Experiment:
             xs = xs + (self._device(seg.t_star_r), seg.block_idx.tolist())
         else:
             xs = xs + (seg.n_wait_r.tolist(),)
-        return xs, consts, seg
+        return xs, consts, seg, seg.times
 
     def _block_single(self, state: RunState, rng, K: int, lrs, eval_fn,
                       eval_every: int) -> RunState:
@@ -913,16 +961,21 @@ class Experiment:
         controls_new, sched_new = state.controls, state.sched
         consts = None
         if self.channel is None:
-            xs = (self._delays(rng, K), lrs)
+            times = self._draw_delays(rng, K)
+            xs = (self._device(times), lrs)
+            self._capture(times, None)
         else:
-            trace_block, trace_new = generate_trace_block(
-                self.nodes, self.channel, K, state.trace)
+            with obs_spans.span("trace/generate"):
+                trace_block, trace_new = generate_trace_block(
+                    self.nodes, self.channel, K, state.trace)
             est = None
             if self.adaptive:
                 est = self._estimator()
                 est.load_state_dict(state.est)
-            xs, consts, seg = self._traced_xs(trace_block, rng, lrs, r0,
-                                              est, state.controls)
+            xs, consts, seg, times = self._traced_xs(
+                trace_block, rng, lrs, r0, est, state.controls)
+            self._capture(times, trace_block.active if seg is None
+                          else seg.active, seg)
             if seg is not None:
                 est_new = est.state_dict()
                 controls_new = seg.controls
@@ -939,9 +992,10 @@ class Experiment:
                     loss, acc = eval_fn(theta)
                     loss_b[k], acc_b[k] = float(loss), float(acc)
         fault_xs, fault_rng_new = self._fault_rows(state, K)
-        carry, cols = self._rounds(state.theta, state.lr_scale,
-                                   xs + fault_xs, eval_at, consts,
-                                   state.theta_prev)
+        with self._block_span():
+            carry, cols = self._rounds(state.theta, state.lr_scale,
+                                       xs + fault_xs, eval_at, consts,
+                                       state.theta_prev)
         t_rounds, n_ret, n_masked, skipped = (c.cpu().numpy() for c in cols)
         if state.collect:
             losses = np.concatenate([state.losses, loss_b])
@@ -973,17 +1027,18 @@ class Experiment:
         fault_xs = tuple(col.reshape((R, K) + col.shape[1:])
                          for col in fault_xs)
         thetas, scales, prevs, cols = [], [], [], []
-        for r in range(R):
-            carry, cols_r = self._rounds(
-                state.theta[r], state.lr_scale[r],
-                (times[r], lrs) + tuple(col[r] for col in fault_xs),
-                theta_prev=(None if state.theta_prev is None
-                            else state.theta_prev[r]))
-            thetas.append(carry[0])
-            scales.append(carry[1])
-            if self.stale_faults:
-                prevs.append(carry[2])
-            cols.append(cols_r)
+        with self._block_span():
+            for r in range(R):
+                carry, cols_r = self._rounds(
+                    state.theta[r], state.lr_scale[r],
+                    (times[r], lrs) + tuple(col[r] for col in fault_xs),
+                    theta_prev=(None if state.theta_prev is None
+                                else state.theta_prev[r]))
+                thetas.append(carry[0])
+                scales.append(carry[1])
+                if self.stale_faults:
+                    prevs.append(carry[2])
+                cols.append(cols_r)
         t_rounds, n_ret, n_masked, skipped = (
             torch.stack(col).cpu().numpy() for col in zip(*cols))
         return dataclasses.replace(
@@ -1008,22 +1063,25 @@ class Experiment:
         T = state.iterations
         tstate = TraceState.init(self.n,
                                  self._trace_rng(state.trace_call + r))
-        trace, _ = generate_trace_block(self.nodes, self.channel, T, tstate)
+        with obs_spans.span("trace/generate"):
+            trace, _ = generate_trace_block(self.nodes, self.channel, T,
+                                            tstate)
         est = controls = None
         if self.adaptive:
             est = self._estimator()
             controls = self.scheme_obj.initial_controls(self)
-        xs, consts, seg = self._traced_xs(
+        xs, consts, seg, _ = self._traced_xs(
             trace, rng, self._device(self._lr_schedule(T)), 0, est, controls)
         # the record kept is the LAST realization's plan, as the
         # reference's `last_schedule`
         sched_new = (state.sched if seg is None
                      else _append_sched(_empty_sched(self.n), seg))
         fault_xs, fault_rng_new = self._fault_rows(state, T)
-        carry, cols = self._rounds(
-            torch.zeros((self.q, self.c), dtype=torch.float32,
-                        device=self.device), 1.0, xs + fault_xs,
-            consts=consts)
+        with self._block_span():
+            carry, cols = self._rounds(
+                torch.zeros((self.q, self.c), dtype=torch.float32,
+                            device=self.device), 1.0, xs + fault_xs,
+                consts=consts)
         t_rounds, n_ret, n_masked, skipped = (c.cpu().numpy() for c in cols)
         theta = state.theta.clone()
         theta[r] = carry[0]
@@ -1048,12 +1106,15 @@ class Experiment:
         with this experiment's `ExperimentSpec` as JSON provenance."""
         arrays, meta = pack_state(state)
         meta["spec"] = self.spec.to_dict()
-        return ckpt_io.save_state(path, arrays, meta)
+        with obs_spans.span("checkpoint/save"):
+            return ckpt_io.save_state(path, arrays, meta)
 
     def restore_state(self, path: str) -> RunState:
         """Load a `RunState` checkpoint (digest verified) onto this
         experiment's device, refusing one saved by another spec."""
-        arrays, meta = ckpt_io.restore_state(path)
+        self._attr_blocks = []   # attribution covers post-restore rounds
+        with obs_spans.span("checkpoint/restore"):
+            arrays, meta = ckpt_io.restore_state(path)
         spec_dict = meta.get("spec")
         if spec_dict is not None:
             saved = ExperimentSpec.from_dict(spec_dict)
@@ -1156,10 +1217,28 @@ class Experiment:
                               privacy_eps=self.privacy_eps,
                               health=self._run_health(state))
 
+    # ------------------------------------------------------------ telemetry
+    def attribution(self, k: int = 3):
+        """Post-hoc straggler attribution (`repro_torch.obs.attribution`)
+        over the delay blocks this experiment drew while telemetry was
+        enabled (`repro_torch.obs.spans.enable`): per-client deadline-miss
+        rate, slowest-`k` contribution counts, and the coded-compensation
+        data share per round.  Covers single-trajectory rounds computed
+        in this process since the last `init_state`/`restore_state`.
+        Raises `RuntimeError` when nothing was captured."""
+        from repro_torch.obs.attribution import attribution_from_blocks
+        return attribution_from_blocks(
+            self._attr_blocks, self.step_kind, t_star=self.t_star,
+            t_ideal=self.t_ideal, n_wait=self.n_wait,
+            loads=self.loads, m=self.m, k=k)
+
     def _drive(self, state: RunState, checkpoint_dir: Optional[str],
-               eval_fn=None, eval_every: int = 10) -> RunState:
+               eval_fn=None, eval_every: int = 10,
+               journal=None) -> RunState:
         """Advance `state` to completion block by block, checkpointing each
-        block boundary when a directory is given."""
+        block boundary when a directory is given and journaling each
+        block's rounds when a `RunJournal` is given (after the checkpoint,
+        so the journal never runs ahead of durable state)."""
         while not state.done:
             state = self.run_block(state, eval_fn=eval_fn,
                                    eval_every=eval_every)
@@ -1169,6 +1248,8 @@ class Experiment:
                         checkpoint_dir,
                         f"{ckpt_io.CKPT_PREFIX}{state.rounds_done:06d}.npz"),
                     state)
+            if journal is not None:
+                journal.sync(self, state)
         return state
 
     def _latest_state(self, checkpoint_dir: Optional[str]):
@@ -1186,7 +1267,8 @@ class Experiment:
             eval_fn: Optional[Callable[[torch.Tensor],
                                        tuple[float, float]]] = None,
             eval_every: int = 10, *, checkpoint_dir: Optional[str] = None,
-            resume: bool = False) -> FedResult:
+            resume: bool = False,
+            journal_dir: Optional[str] = None) -> FedResult:
         """Run `iterations` rounds from theta = 0 as a chain of
         `run_block` calls: a block is ``spec.checkpoint_every`` rounds, or
         the whole horizon when that is 0.
@@ -1196,13 +1278,21 @@ class Experiment:
         other rounds log NaN.  ``checkpoint_dir`` writes an atomic
         `RunState` checkpoint at every block boundary; ``resume=True``
         restores the newest intact one there (if any) and continues,
-        bit-identical to the uninterrupted blocked run.
+        bit-identical to the uninterrupted blocked run.  ``journal_dir``
+        appends one `repro_torch.obs` event per round to
+        ``<journal_dir>/events.jsonl`` at the same boundaries — on resume
+        the journal is trimmed/regrown to match the restored state, so an
+        interrupted run's journal is always extended, never corrupted.
         """
         if self.engine == "legacy":
             if checkpoint_dir is not None or resume:
                 raise ValueError(
                     "checkpointing requires the batched engine; the legacy "
                     "per-client oracle has no block-structured run state")
+            if journal_dir is not None:
+                raise ValueError(
+                    "journal_dir requires the batched engine; the legacy "
+                    "per-client oracle has no RunState to journal from")
             iterations = int(iterations)
             if iterations < 1:
                 raise ValueError(f"iterations={iterations} must be >= 1")
@@ -1230,7 +1320,17 @@ class Experiment:
                         f"{state.collect}; pass a matching eval_fn")
         if state is None:
             state = self.init_state(iterations, collect=eval_fn is not None)
-        state = self._drive(state, checkpoint_dir, eval_fn, eval_every)
+        journal = None
+        if journal_dir is not None:
+            from repro_torch.obs.events import RunJournal
+            journal = RunJournal(journal_dir)
+            # trim past the restored state (a journal ahead of a rolled-
+            # back checkpoint replays from authoritative state), then
+            # regrow whatever prefix the state already carries
+            journal.reset_to(state.rounds_done)
+            journal.sync(self, state)
+        state = self._drive(state, checkpoint_dir, eval_fn, eval_every,
+                            journal=journal)
         return self.finish(state)
 
     def run_multi(self, iterations: int, n_realizations: int,

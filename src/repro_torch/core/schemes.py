@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import (aggregation, encoding, load_allocation,
                               privacy, secure_agg)
 from repro_torch.core.delay_model import ideal_round_time, packet_bits
+from repro_torch.obs import spans as obs_spans
 
 STEP_KINDS = ("naive", "greedy", "coded", "ideal", "adaptive_coded",
               "adaptive_greedy")
@@ -138,14 +139,15 @@ class CodedScheme(Scheme):
         same host generator `exp.rng`."""
         fl = exp.fl
         u_max = self.u_budget(exp)
-        if exp._pick_alloc_backend() == "vectorized":
-            alloc = load_allocation.two_step_allocate_vectorized(
-                exp.nodes, [float(exp.l)] * exp.n, server=None,
-                u_max=float(u_max), m=float(exp.m), device=exp.device)
-        else:
-            alloc = load_allocation.two_step_allocate(
-                exp.nodes, [float(exp.l)] * exp.n, server=None,
-                u_max=float(u_max), m=float(exp.m))
+        with obs_spans.span("solver/two_step"):
+            if exp._pick_alloc_backend() == "vectorized":
+                alloc = load_allocation.two_step_allocate_vectorized(
+                    exp.nodes, [float(exp.l)] * exp.n, server=None,
+                    u_max=float(u_max), m=float(exp.m), device=exp.device)
+            else:
+                alloc = load_allocation.two_step_allocate(
+                    exp.nodes, [float(exp.l)] * exp.n, server=None,
+                    u_max=float(u_max), m=float(exp.m))
         exp.t_star = alloc.t_star
         exp.u = u_max
         # integer loads (floor, at least 0)
@@ -187,8 +189,9 @@ class CodedScheme(Scheme):
         # fused_embed the clients hold RAW features: the encode runs over a
         # transient (n, l, q) embed that only this setup step sees
         x_enc = exp.embedded_x() if exp.fused_embed else exp.x
-        stacked = encoding.encode_local_batched(g_stack, x_enc, exp.y,
-                                                exp.w_stack)
+        with obs_spans.span("encode/parity", sync=exp.device):
+            stacked = encoding.encode_local_batched(g_stack, x_enc, exp.y,
+                                                    exp.w_stack)
         if exp.secure_aggregation:
             # paper §VI future work: the server sees only masked uploads;
             # the pairwise masks cancel in their sum (core/secure_agg.py)
@@ -384,14 +387,15 @@ class AdaptiveCodedScheme(CodedScheme):
                     *args, device=exp.device)
         else:
             allocate = load_allocation.two_step_allocate
-        try:
-            alloc = allocate(est_nodes, list(caps), None, float(exp.u),
-                             float(exp.m))
-        except ValueError:
-            # too many clients estimated unavailable for feasibility: fall
-            # back to full caps rather than keep a stale plan
-            alloc = allocate(est_nodes, [float(exp.l)] * exp.n, None,
-                             float(exp.u), float(exp.m))
+        with obs_spans.span("solver/two_step"):
+            try:
+                alloc = allocate(est_nodes, list(caps), None, float(exp.u),
+                                 float(exp.m))
+            except ValueError:
+                # too many clients estimated unavailable for feasibility:
+                # fall back to full caps rather than keep a stale plan
+                alloc = allocate(est_nodes, [float(exp.l)] * exp.n, None,
+                                 float(exp.u), float(exp.m))
         loads = np.minimum(np.floor(alloc.loads).astype(int), exp.l)
         return {"loads": loads, "t_star": float(alloc.t_star)}
 

@@ -15,8 +15,8 @@ of the delay and channel-trace streams, so turning faults on never shifts
 the network a run faces.  Everything here is host-side NumPy, the
 reference's code on the same generators, so the draws are bit-identical
 to the reference's.  The service-level knobs (``crash_prob``,
-``ckpt_corrupt_prob``, ``ckpt_corrupt_kind``) are carried in the profile
-for the round trip; the port has no experiment service yet to act on them.
+``ckpt_corrupt_prob``, ``ckpt_corrupt_kind``) act in the experiment service
+(`repro_torch.launch.service`), on the reference's chaos stream.
 """
 from repro_torch.faults.profile import (FAULT_PROFILES,  # noqa: F401
                                         FaultProfile, get_fault_profile)

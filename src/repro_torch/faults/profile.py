@@ -12,9 +12,8 @@ per-round probabilities:
     Corruption is non-finite garbage, which the non-finite guard can
     detect; arbitrary finite Byzantine values are out of scope;
   * **infrastructure faults** (``crash_prob`` / ``ckpt_corrupt_prob``)
-    belong to the reference's experiment service (block crashes,
-    checkpoints corrupted on disk).  The port carries them so that a
-    profile round-trips, and does not act on them.
+    act in the experiment service (`repro_torch.launch.service`): block
+    crashes, checkpoints corrupted on disk.
 
 All knobs default to 0: ``FaultProfile()`` (the ``"none"`` profile) is
 benign and, because the fault stream is separate from the delay and

@@ -265,7 +265,11 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models.model_zoo, repro_torch.models.attention\n"
         "import repro_torch.models.transformer, repro_torch.models.common\n"
         "import repro_torch.faults, repro_torch.core.secure_agg\n"
-        "import repro_torch.launch.sweep\n"
+        "import repro_torch.launch.sweep, repro_torch.obs\n"
+        "import repro_torch.launch.service, repro_torch.launch.report\n"
+        "import repro_torch.launch.resilience\n"
+        "import repro_torch.launch.service_multiplex\n"
+        "import repro_torch.launch.run_report\n"
         "from repro_torch.configs import ARCH_IDS, get_config\n"
         "[get_config(a) for a in ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
