@@ -126,7 +126,30 @@ Phases, each printed as one JSON object per line:
              checkpoint-save times per block; then
              launch.resilience.run_resilience on the card at the
              reference's defaults, validate_resilience == [];
- 20. serve:  the model zoo's serving path, qwen3-4b at full width (36
+ 20. hier:   the hierarchical tier at MNIST-RFF width: the main path's
+             embedded shards over 3 edge aggregators (n_s = 10, l = 400,
+             q = 2000, c = 10, u_s = 800), sample_fraction 0.5, 20 rounds
+             in blocks of 5, built and run with telemetry on and a journal
+             under the git-ignored build/chip_smoke_hier: 6
+             parity_encode_batched launches a build, 60 linreg_grad_masked
+             and 60 linreg_grad a run; returned counts and wall clock equal
+             to the host replay of the delay and cohort streams; the spans
+             hier/shard_setup, solver/two_step, encode/parity,
+             hier/round_block, one attribution a shard, t_star_s in every
+             journal event; card against CPU for 3 rounds (loads equal, t*
+             within 2e-6 (1 + t*), returned counts equal, theta within
+             tolerance); killed after one block and resumed in a fresh
+             experiment, and blocks of 4, bit-identical to blocks of 5; the
+             f = 1 twin (same plans and delay stream, reweight 1); setup
+             split by span, warm ms/round, and the share of a round that
+             uploads the shards' client blocks;
+ 21. hier_scale: repro_torch.launch.hier_scale.main() on the card (n =
+             10,000 over 10 shards, l = 8, q = 16, c = 3, f = 0.25, the
+             kill/resume against the uninterrupted run), then
+             launch.scale.run_scale over n = 1e3, 1e4, 1e5 at the
+             reference's defaults, validate_scale == []; each rung's device
+             peak memory beside its peak client tensor and the dense bytes;
+ 22. serve:  the model zoo's serving path, qwen3-4b at full width (36
              layers, d_model 2560, bf16) from seeded random weights: 8
              requests of 4096-token prompts (make_batch), 64 greedy tokens
              each (max_seq 4160, window 0) through
@@ -135,21 +158,24 @@ Phases, each printed as one JSON object per line:
              its byte bound, tokens/s; then torch.profiler over 4 warm
              decode steps after a second prefill: device busy and idle
              share of a step, the top kernels, and gqa_decode's share;
- 21. serve_check: full width at 4 layers, float32: the last decode step's
+ 23. serve_check: full width at 4 layers, float32: the last decode step's
              logits against the last-position logits of a prefill over
              prompt + generated tokens, at window 0 and at window 1024 over
              a 4096-token prompt (a rolling cache);
- 22. serve_cpu: the qwen3-4b smoke variant served on the card and on the
+ 24. serve_cpu: the qwen3-4b smoke variant served on the card and on the
              CPU (plain versions): identical tokens, logits within tolerance;
- 23. kernel: each kernel against its plain PyTorch version on the card, at
+ 25. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
              tile multiple; times with CUDA events.  linreg_grad_masked at
              the coded round's live rows (consts["live_rows"]) is held
              against its plain version over every row, and timed there,
              over every row and at the naive round's tensor, each beside
-             library calls over the same rows and its bound;
-             parity_encode_batched is timed at the feature shape and at the
+             library calls over the same rows and its bound; kernels 2, 3
+             and 5 add `hier` variants at the tier's shapes (hier's shard 0,
+             the shards of hier_scale's example and of run_scale), each held
+             against its plain version, rerun, and timed beside its library
+             call and its bound; parity_encode_batched is timed at the feature shape and at the
              label shape (q = c = 10), each with its bound (the feature
              product in 3xTF32 on the tensor cores); rff_linreg_grad_masked
              at the round's live rows is held against its plain version over
@@ -173,7 +199,7 @@ Phases, each printed as one JSON object per line:
              by events, on the device (device_ms, library_device_ms) and on
              the host (host_ms: the wrapper's enqueue), beside SDPA with its
              mask made once outside the timed calls;
- 24. the kernels table, then the final line
+ 26. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -222,6 +248,14 @@ OBS_EVERY = 5             # checkpoint_every of the telemetry and service jobs
 TELEMETRY_PAIRS = 3       # spans-off / spans-on warm runs timed in turns
 REPORT_LINES = 14         # first lines of render_report printed
 SERVICE_DROP_AFTER = 3    # service steps before the drop
+# the hierarchical tier at MNIST-RFF width: edge aggregators, the sampled
+# fraction, rounds a block; its run directories under the git-ignored build/
+HIER_SHARDS = 3
+HIER_F = 0.5
+HIER_EVERY = 5
+HIER_DIR = CKPT_DIR.parent / "chip_smoke_hier"
+# launch.scale.run_scale's rungs: the reference's REQUIRED_NS, uncut
+SCALE_NS = (1_000, 10_000, 100_000)
 PEAK_FLOPS = 67e12        # H100 SXM float32, outside the tensor cores
 PEAK_BF16 = 989e12        # H100 SXM bf16 tensor cores, dense
 PEAK_TF32 = 495e12        # H100 SXM TF32 tensor cores, dense
@@ -2147,6 +2181,264 @@ def service_path(torch, dev, state) -> None:
     _release(torch)
 
 
+def _hier_spec(state, f: float):
+    """The main path's coded deployment over HIER_SHARDS edge aggregators,
+    sampled at f, in blocks of HIER_EVERY rounds."""
+    return dataclasses.replace(state["spec"], hier_shards=HIER_SHARDS,
+                               sample_fraction=f,
+                               checkpoint_every=HIER_EVERY)
+
+
+def _replay_hier(exp, rng_state, srng_state, rounds: int):
+    """(returned (rounds,), wall clock (rounds,)) of a hier run from the
+    given stream positions, on the host: the delay rows and the cohort
+    block drawn as the reference draws them, each shard against its own
+    deadline."""
+    from repro_torch.core.delay_model import sample_round_times_stacked
+
+    rng = np.random.default_rng()
+    rng.bit_generator.state = rng_state
+    srng = np.random.default_rng()
+    srng.bit_generator.state = srng_state
+    loads = np.concatenate([p.loads for p in exp.plans]).astype(np.float64)
+    times = np.concatenate([sample_round_times_stacked(exp._prm, loads, rng,
+                                                       1)
+                            for _ in range(rounds)])
+    cohort = srng.random((rounds, exp.n)) < exp.sample_fraction
+    ret = np.zeros(rounds, np.int64)
+    for p in exp.plans:
+        ret += ((times[:, p.lo:p.hi] <= p.t_star)
+                & cohort[:, p.lo:p.hi]).sum(axis=1)
+    t_round = max(p.t_star for p in exp.plans)
+    wall = exp.setup_time + np.cumsum(np.full(rounds, t_round))
+    return ret, wall
+
+
+def hier_path(torch, dev, state) -> None:
+    """The hierarchical tier at MNIST-RFF width: the main path's embedded
+    shards over HIER_SHARDS edge aggregators, sampled at HIER_F, ROUNDS
+    rounds in blocks of HIER_EVERY, built and run with telemetry on and a
+    journal; launches asserted, the host replay of both streams, card
+    against CPU, kill/resume and another block partition, the f = 1 twin;
+    setup split by span, warm ms/round and the upload's share of it."""
+    import shutil
+
+    from repro_torch.api import build_experiment, load_events, obs_spans
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.kernels import ops
+
+    spec = _hier_spec(state, HIER_F)
+    xs, ys = state["xs"], state["ys"]
+    shutil.rmtree(HIER_DIR, ignore_errors=True)
+
+    def build(s, device=dev):
+        return build_experiment(s, xs, ys, device=device)
+
+    # build and run with telemetry on: spans, attribution, the journal
+    ops.reset_launch_counts()
+    with obs_spans.collecting():
+        t0 = time.perf_counter()
+        exp = build(spec)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        build_launches = dict(ops.LAUNCHES)
+        rng0 = exp.rng.bit_generator.state
+        srng0 = exp._sample_rng.bit_generator.state
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = exp.run(ROUNDS, journal_dir=str(HIER_DIR / "run"))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches = dict(ops.LAUNCHES)
+        attr = exp.attribution()
+        totals = obs_spans.totals()
+    add_launches(state, build_launches)
+    add_launches(state, run_launches)
+    plans = exp.plans
+    n_s = [p.n_clients for p in plans]
+    check(build_launches["parity_encode_batched"] == 2 * HIER_SHARDS,
+          f"hier: parity_encode_batched launched "
+          f"{build_launches['parity_encode_batched']} times in a build of "
+          f"{HIER_SHARDS} shards")
+    for name in ("linreg_grad_masked", "linreg_grad"):
+        check(run_launches[name] == HIER_SHARDS * ROUNDS,
+              f"hier: {name} launched {run_launches[name]} times in "
+              f"{ROUNDS} rounds of {HIER_SHARDS} shards")
+    check(bool(torch.isfinite(res.theta).all()), "hier: theta not finite")
+    # both streams replayed on the host at the run's own plans
+    ret_want, wall_want = _replay_hier(exp, rng0, srng0, ROUNDS)
+    check(np.array_equal(res.n_ret, ret_want),
+          "hier: returned counts differ from the host replay")
+    check(np.array_equal(res.wall_clock, wall_want),
+          "hier: wall clock differs from the host replay")
+    # telemetry: the tier's spans, one attribution a shard, the journal
+    spans = ("setup/experiment", "hier/shard_setup", "solver/two_step",
+             "encode/parity", "hier/round_block")
+    missing = [s for s in spans if s not in totals]
+    check(not missing, f"hier: spans {missing} not recorded")
+    check(sorted(attr) == list(range(HIER_SHARDS)),
+          f"hier: attribution keys {sorted(attr)}")
+    events = load_events(str(HIER_DIR / "run"))
+    t_stars = [p.t_star for p in plans]
+    check(len(events) == ROUNDS
+          and all(e["t_star_s"] == t_stars for e in events)
+          and [e["returned"] for e in events] == res.n_ret.tolist(),
+          "hier: the journal does not carry the run's rounds and t_star_s")
+
+    # the same deployment on the CPU (plain versions) for CPU_ROUNDS
+    t0 = time.perf_counter()
+    cpu = build(spec, "cpu")
+    cpu_s = time.perf_counter() - t0
+    start_cpu = cpu.init_state(CPU_ROUNDS)
+    got_cpu = cpu.run_block(start_cpu)
+    got_card = exp.run_block(dataclasses.replace(
+        start_cpu, theta=start_cpu.theta.to(dev)))
+    t_err = max(abs(a.t_star - b.t_star) / (1.0 + b.t_star)
+                for a, b in zip(plans, cpu.plans))
+    same_loads = all(np.array_equal(a.loads, b.loads)
+                     for a, b in zip(plans, cpu.plans))
+    th_err = float((got_card.theta.cpu() - got_cpu.theta).abs().max())
+    th_tol = THETA_REL_TOL * max(1.0, float(got_cpu.theta.abs().max()))
+    check(same_loads, "hier: card and CPU loads differ")
+    check(t_err <= 2e-6, f"hier: card and CPU t* differ by {t_err} "
+          "relative to 1 + t*")
+    check(np.array_equal(got_card.n_ret, got_cpu.n_ret),
+          "hier: card and CPU returned counts differ")
+    check(th_err <= th_tol, f"hier: card theta differs from CPU theta by "
+          f"{th_err} > {th_tol}")
+
+    # kill after one block, resume in a fresh experiment; another partition
+    first = exp.run_block(dataclasses.replace(
+        exp.init_state(ROUNDS), rng_state=rng0, sample_rng_state=srng0))
+    path = exp.save_state(str(HIER_DIR / "ckpt" / (
+        f"{ckpt_io.CKPT_PREFIX}{first.rounds_done:06d}.npz")), first)
+    del first                                            # the kill
+    t0 = time.perf_counter()
+    fresh = build(spec)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    resumed = fresh.run(ROUNDS, checkpoint_dir=str(HIER_DIR / "ckpt"),
+                        resume=True)
+    same_resume = (bool(torch.equal(resumed.theta, res.theta))
+                   and np.array_equal(resumed.n_ret, res.n_ret)
+                   and np.array_equal(resumed.wall_clock, res.wall_clock))
+    check(same_resume, "hier: the resumed run differs from the "
+          "uninterrupted one")
+    part = dataclasses.replace(fresh.init_state(ROUNDS), rng_state=rng0,
+                               sample_rng_state=srng0)
+    while not part.done:
+        part = fresh.run_block(part, HIER_EVERY - 1)
+    same_part = (bool(torch.equal(part.theta, res.theta))
+                 and np.array_equal(part.n_ret, res.n_ret))
+    check(same_part, f"hier: blocks of {HIER_EVERY - 1} differ from blocks "
+          f"of {HIER_EVERY}")
+
+    # the twin at f = 1: the same plans and delay stream, every client in
+    twin = build(_hier_spec(state, 1.0))
+    twin_res = twin.run(ROUNDS)
+    same_plans = all(a.t_star == b.t_star and np.array_equal(a.loads, b.loads)
+                     and torch.equal(a.parity_x, b.parity_x)
+                     for a, b in zip(plans, twin.plans))
+    check(same_plans, "hier: the f = 1 twin's plans differ")
+    check(all(p.parity_weight == 1.0 for p in twin.plans)
+          and all(p.parity_weight > 1.0 for p in plans),
+          "hier: parity reweights off (1 at f = 1, > 1 below)")
+    check(bool(np.all(twin_res.n_ret >= res.n_ret)),
+          "hier: the f = 1 twin returned fewer clients than f = 0.5")
+    check(twin.rng.bit_generator.state == exp.rng.bit_generator.state,
+          "hier: sampling shifted the delay stream")
+
+    # warm ms/round, and the upload of a round's shard blocks alone
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.run(ROUNDS)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) / ROUNDS * 1e3)
+
+    def uploads():
+        for p in plans:
+            exp._shard_data(p.lo, p.hi)
+
+    upload_ms = [time_ms(torch, uploads, ROUNDS) for _ in range(3)]
+    shutil.rmtree(HIER_DIR, ignore_errors=True)
+    emit({"phase": "hier", "shards": HIER_SHARDS, "sample_fraction": HIER_F,
+          "n_s": n_s, "l": exp.l, "q": exp.q, "c": exp.c,
+          "u_s": [p.u for p in plans], "rounds": ROUNDS,
+          "checkpoint_every": HIER_EVERY,
+          "t_star_s": t_stars, "t_round": res.t_round,
+          "loads": [p.loads.tolist() for p in plans],
+          "parity_weight": [p.parity_weight for p in plans],
+          "returned": res.n_ret.tolist(),
+          "twin_returned": twin_res.n_ret.tolist(),
+          "wall_clock": float(res.wall_clock[-1]),
+          "setup_s": setup_s, "rebuild_s": rebuild_s, "cpu_build_s": cpu_s,
+          "setup_spans_s": {s: totals[s]["total_s"] for s in spans[:4]},
+          "round_block_s": totals["hier/round_block"]["total_s"],
+          "first_run_ms_per_round": run_s / ROUNDS * 1e3,
+          "warm_ms_per_round": warm, "upload_ms_per_round": upload_ms,
+          "upload_share": min(upload_ms) / min(warm),
+          "host_replay_identical": True,
+          "cpu": {"rounds": CPU_ROUNDS, "t_star_rel_err": t_err,
+                  "loads_equal": same_loads, "theta_max_abs_err": th_err,
+                  "tol": th_tol},
+          "resume_identical": same_resume,
+          "partition_identical": same_part,
+          "attribution_miss_rate_max": [
+              float(np.max(a.miss_rate)) for a in attr.values()],
+          "build_launches": build_launches, "run_launches": run_launches})
+    state["hier"] = (exp, res.theta)
+
+
+def hier_scale_path(torch, dev, state) -> None:
+    """`repro_torch.launch.hier_scale.main()` on the card at the example's
+    settings, then `launch.scale.run_scale` at the reference's defaults
+    over SCALE_NS, `validate_scale` empty; device peak memory beside the
+    peak client tensor and the dense bytes, a rung each."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import hier_scale, scale
+
+    ops.reset_launch_counts()
+    lines = []
+    t0 = time.perf_counter()
+    out = hier_scale.main(device=dev, out=lines.append)
+    example_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    check(out["bit_identical"], "hier_scale: kill/resume differs")
+    check(out["section"]["identity"]["bit_identical"],
+          "hier_scale: the identity configuration is not the flat run")
+    check(launches["linreg_grad_masked"] > 0 and launches["linreg_grad"] > 0
+          and launches["parity_encode_batched"] > 0,
+          f"hier_scale: launches {launches}")
+    emit({"phase": "hier_scale", "example": hier_scale.__name__,
+          "seconds": example_s, "printed": lines,
+          "t_round": out["result"].t_round,
+          "mean_returned": float(out["result"].n_ret.mean()),
+          "peak_client_tensor_bytes": out["peak_bytes"],
+          "dense_bytes": out["dense_bytes"], "launches": launches})
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    section = scale.run_scale(ns=SCALE_NS, device=dev)
+    scale_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    errs = scale.validate_scale(section)
+    emit({"phase": "hier_scale", "probe": "run_scale", "ns": list(SCALE_NS),
+          "cut": None, "seconds": scale_s,
+          "rungs": [{k: e[k] for k in (
+              "n", "shards", "setup_seconds", "round_seconds",
+              "trace_seconds", "t_round", "mean_returned",
+              "device_max_allocated_bytes", "device_peak_bytes",
+              "peak_client_tensor_bytes",
+              "dense_client_tensor_bytes", "population_tensor_bytes")}
+              for e in section["entries"]],
+          "identity": section["identity"], "errors": errs,
+          "launches": launches})
+    check(errs == [], f"hier_scale: validate_scale: {errs}")
+
+
 def _release(torch) -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2953,6 +3245,86 @@ def kernel_checks(torch, dev, state) -> list:
     def pe_cost(g, w, x):
         return par_cost(g[None], w[None], x[None])
 
+    # kernels 2, 3 and 5 at the hierarchical tier's shapes: shard 0 of the
+    # hier phase's MNIST-RFF deployment (its own tensors and generators),
+    # then the shard shapes of launch.hier_scale (n_s = 1000, l = 8, q =
+    # 16, c = 3, u_s = 1600) and of launch.scale.run_scale (n_s = 1000,
+    # l = 4, q = 8, c = 2, u_s = 800): l = 4 and 8 against the 16-step K
+    # stage and the 8-row slabs
+    from repro_torch.core.encoding import generator_matrix
+    from repro_torch.hier.topology import shard_generator
+
+    hexp, htheta = state["hier"]
+    hp = hexp.plans[0]
+    hx, hy = hexp._shard_data(hp.lo, hp.hi)
+    hw = torch.from_numpy(np.where(
+        np.arange(hexp.l)[None, :] < hp.loads[:, None],
+        np.sqrt(1.0 - hp.p_return)[:, None], 1.0).astype(np.float32)).to(dev)
+    hgen = shard_generator(hexp.fl.seed, 0)
+    hg = torch.stack([generator_matrix(hgen, hp.u, hexp.l)
+                      for _ in range(hp.n_clients)]).to(dev)
+    hier_shapes = {"hier_example": (1000, 1600, 8, 16, 3),
+                   "hier_scale": (1000, 800, 4, 8, 2)}
+
+    def prefix_mask(nn, ll):
+        loads = torch.randint(0, ll + 1, (nn, 1), generator=gen, device=dev)
+        return (torch.arange(ll, device=dev)[None, :] < loads).float()
+
+    hier_args = {"parity_encode_batched": {
+        "hier": (hg, hw, hx), "hier_labels": (hg, hw, hy)},
+        "linreg_grad_masked": {
+        "hier": (hx, htheta, hy, hp.gmask, None)},
+        "linreg_grad": {"hier": (hp.parity_x, htheta, hp.parity_y)}}
+    for key, (nn, uu, ll, qq, cc) in hier_shapes.items():
+        g_, w_ = randn(nn, uu, ll), unif(nn, ll, lo=0.2)
+        x_, y_ = randn(nn, ll, qq, scale=0.3), randn(nn, ll, cc)
+        th_ = randn(qq, cc, scale=0.3)
+        hier_args["parity_encode_batched"][key] = (g_, w_, x_)
+        hier_args["parity_encode_batched"][key + "_labels"] = (g_, w_, y_)
+        hier_args["linreg_grad_masked"][key] = (x_, th_, y_,
+                                                prefix_mask(nn, ll), None)
+        hier_args["linreg_grad"][key] = (randn(uu, qq, scale=0.3), th_,
+                                         randn(uu, cc))
+
+    def hier_variants(name, kern, plain, lib, cost):
+        """The kernel at the tier's shapes against its plain version, a
+        rerun, its times, the library's and its bound."""
+        out = {}
+        for key, args in hier_args[name].items():
+            got, again = kern(*args), kern(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"{name} ({key}): two launches "
+                  "on the same inputs gave other bits")
+            err, tol = max_err(torch, got, plain(*args))
+            lib_err, _ = max_err(torch, lib(*args), plain(*args))
+            b_ms, b_by = bound(*cost(*args))
+            out[key] = {
+                "shape": [None if a is None else list(a.shape)
+                          for a in args],
+                "max_abs_err": err, "tol": tol,
+                "library_max_abs_err": lib_err, "rerun_identical": True,
+                "ms": time_ms(torch, lambda: kern(*args), 20),
+                "plain_ms": time_ms(torch, lambda: plain(*args), 20),
+                "library_ms": time_ms(torch, lambda: lib(*args), 20),
+                "device_ms": device_ms(torch, lambda: kern(*args), 10),
+                "library_device_ms": device_ms(torch, lambda: lib(*args),
+                                               10),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bytes": cost(*args)[0]}
+        return out
+
+    def with_hier(extra, name, kern, plain, lib, cost):
+        return lambda: {**extra(), "hier": hier_variants(name, kern, plain,
+                                                         lib, cost)}
+
+    par_extra = with_hier(par_extra, "parity_encode_batched",
+                          ops.parity_encode_batched,
+                          ref.parity_encode_batched, par_lib, par_cost)
+    lin_extra = with_hier(lin_extra, "linreg_grad_masked", lin_kern,
+                          lin_plain, lin_lib, lin_cost)
+    lg_extra = with_hier(lg_extra, "linreg_grad", ops.linreg_grad,
+                         ref.linreg_grad, lg_lib, lg_cost)
+
     # (name, kernel, plain, the version it is held against, library, main
     #  inputs, edge inputs, cost (bytes, FFMA, bf16 and 3xTF32 flops; see
     #  bound), reps, relative tolerance, extra checks); kernels 3 and 4 are
@@ -3052,7 +3424,8 @@ def main() -> int:
                   encode_local_path, resume_path, multi_path, alloc_path,
                   quickstart_path, channel_path, adaptive_path, faults_path,
                   secure_agg_path, sweep_path, telemetry_path, service_path,
-                  serve_path, serve_check, serve_cpu):
+                  hier_path, hier_scale_path, serve_path, serve_check,
+                  serve_cpu):
         t0 = time.perf_counter()
         phase(torch, dev, state)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})

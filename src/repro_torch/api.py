@@ -9,7 +9,9 @@
     result = build_experiment(spec, xs, ys).run(100)     # on the GPU
 
 A spec the reference wrote (``repro.config.ExperimentSpec.to_dict()``)
-builds here unchanged.
+builds here unchanged.  A hier-active spec (``hier_shards > 1`` or
+``sample_fraction < 1.0``) builds a `repro_torch.hier.HierExperiment`,
+which may stream its clients through ``data_fn(lo, hi)``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from repro_torch.core.run_state import RunState  # noqa: F401
 from repro_torch.core.schemes import (Scheme, get_scheme,  # noqa: F401
                                       grid_names, register,
                                       registered_names)
+from repro_torch.faults import (FAULT_PROFILES, FaultProfile,  # noqa: F401
+                                get_fault_profile)
 from repro_torch.net.channel import (CHANNEL_PROFILES,  # noqa: F401
                                      ChannelProfile)
 from repro_torch.obs import (Attribution, RunJournal,  # noqa: F401
@@ -38,6 +42,7 @@ __all__ = [
     "MultiFedResult", "RoundLog", "RunHealth", "RunState", "Scheme",
     "build_experiment", "get_scheme", "grid_names", "register",
     "registered_names", "CHANNEL_PROFILES", "ChannelProfile",
+    "FAULT_PROFILES", "FaultProfile", "get_fault_profile",
     "Attribution", "RunJournal", "load_events", "history_from_journal",
     "histories_equal", "obs_spans",
 ]
@@ -52,12 +57,14 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,
+def build_experiment(spec: "ExperimentSpec | dict", x_stack=None,
+                     y_stack=None, *,
                      nodes: Optional[list] = None,
                      rng: Optional[np.random.Generator] = None,
                      device=None, parity_generators=None,
-                     rff_draw=None, secure_masks=None) -> Experiment:
-    """Build a runnable `Experiment` from a spec and client data.
+                     rff_draw=None, secure_masks=None, data_fn=None):
+    """Build a runnable `Experiment` (or `HierExperiment`) from a spec and
+    client data.
 
     spec: an `ExperimentSpec` (or its `to_dict()` form, revived here);
     x_stack: (n, l, q) RFF-embedded client features, or (n, l, d) RAW ones
@@ -75,6 +82,15 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,
     ``repro_torch.carry.secure_masks_from_reference`` — and is refused
     without ``spec.secure_aggregation``.
 
+    Specs with ``hier_shards > 1`` or ``sample_fraction < 1.0`` build a
+    `repro_torch.hier.HierExperiment` instead (edge-aggregator shards,
+    sampled cohorts with coded compensation); those may stream client
+    blocks via ``data_fn(lo, hi) -> (x, y)`` in place of dense stacks, and
+    their `parity_generators` is a list of per-shard (n_s, u_s, l) stacks
+    (``repro_torch.carry.hier_generators_from_reference``).  The identity
+    configuration (``hier_shards=1, sample_fraction=1.0``) always takes
+    the flat engine.
+
     A spec that asks for a feature the port does not have yet raises
     ``NotImplementedError`` naming it.
     """
@@ -87,6 +103,28 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack, y_stack, *,
             + " yet")
     # validate the scheme against the live registry up front
     schemes.get_scheme(spec.resolved_scheme)
+    if spec.hier_active:
+        from repro_torch.hier import HierExperiment
+        if nodes is not None:
+            raise ValueError(
+                "the hierarchical tier builds its delay population from "
+                "the spec (repro_torch.hier.population_delay_arrays) and "
+                "shards clients over edge aggregators; nodes/mesh "
+                "overrides are not supported with hier_shards > 1 or "
+                "sample_fraction < 1.0")
+        if rff_draw is not None or secure_masks is not None:
+            raise ValueError(
+                "rff_draw and secure_masks replace draws of fused_embed "
+                "and secure aggregation, which the hierarchical tier does "
+                "not run")
+        return HierExperiment(spec, x_stack, y_stack, data_fn=data_fn,
+                              rng=rng, device=device,
+                              parity_generators=parity_generators)
+    if data_fn is not None:
+        raise ValueError(
+            "data_fn streaming is only supported by the hierarchical tier "
+            "(hier_shards > 1 or sample_fraction < 1.0); the flat engine "
+            "takes dense x_stack/y_stack")
     return Experiment(spec, x_stack, y_stack, nodes=nodes, rng=rng,
                       device=device, parity_generators=parity_generators,
                       rff_draw=rff_draw, secure_masks=secure_masks)

@@ -14,6 +14,10 @@ them into the port's tensors:
     that ``repro.core.schemes.CodedScheme.setup`` draws from its key chain
     (``PRNGKey(fl.seed + 99)``, split client after client), for
     ``build_experiment(..., parity_generators=...)``;
+  * `hier_generators_from_reference`: the per-shard (n_s, u_s, l) stacks
+    that ``repro.hier.topology.HierExperiment`` draws for its shards
+    (``fold_in(PRNGKey(fl.seed + 99), s)``, then a split chain an encode
+    block), for ``build_experiment(hier_spec, ..., parity_generators=...)``;
   * `secure_masks_from_reference`: the pairwise masks of
     ``repro.core.secure_agg`` (``_mask_like(_pair_key(PRNGKey(fl.seed +
     1234), i, j), parity, 1.0)``, one a client pair), for
@@ -55,6 +59,13 @@ def rff_from_reference(omega, delta, device=None):
 def generators_from_reference(g_stack, device=None) -> torch.Tensor:
     """The (n, u, l) generator stack as a float32 tensor on `device`."""
     return _tensor(g_stack, 3, "generator stack", device)
+
+
+def hier_generators_from_reference(stacks, device=None) -> list:
+    """The per-shard (n_s, u_s, l) generator stacks of the hierarchical
+    tier, in shard order, as float32 tensors on `device`."""
+    return [_tensor(g, 3, f"generator stack of shard {s}", device)
+            for s, g in enumerate(stacks)]
 
 
 def secure_masks_from_reference(mask_x, mask_y, device=None):

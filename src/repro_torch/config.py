@@ -13,15 +13,15 @@ gradient kernel (``fused_embed``), block-structured and checkpointed
 adaptive schemes (``adapt_every``), return-fault injection
 (``fault_profile``/``fault_params``, `resolved_faults`), secure
 aggregation of the parity sets (``secure_aggregation``), and the legacy
-per-client oracle (``engine="legacy"``).  A spec may still name a feature
-the port does not have yet (the hierarchical tier, a client mesh): the
-spec holds it so that it round-trips, and ``build_experiment`` raises
-``NotImplementedError`` naming the feature (`unsupported_features`).
-Combinations the reference refuses when a spec is made (``fused_embed``
-with the legacy engine or a mesh, the legacy engine with checkpoints,
-channel dynamics, faults or the hierarchical tier, return faults on a
-mesh, the hierarchical tier with faults or secure aggregation) raise
-``ValueError`` here too.
+per-client oracle (``engine="legacy"``); and the hierarchical tier
+(``hier_shards``/``sample_fraction``, `hier_active`,
+``repro_torch.hier``).  A spec may still name the one feature the port
+does not have yet, a client mesh: the spec holds it so that it
+round-trips, and ``build_experiment`` raises ``NotImplementedError``
+naming the feature (`unsupported_features`).  Every combination the
+reference refuses when a spec is made raises ``ValueError`` here too,
+with the reference's message, and the fields are checked in the
+reference's order, so a spec with two faults names the same one.
 
 The model zoo's configurations (``ModelConfig`` and its family blocks,
 ``ShapeConfig``, ``SHAPES``) are copied field for field as well; the
@@ -282,6 +282,14 @@ class ExperimentSpec:
             if self.mesh is not None:
                 raise ValueError(
                     "fused_embed does not support client-mesh sharding yet")
+        if self.run_id is not None and not (
+                isinstance(self.run_id, str)
+                and re.fullmatch(r"[A-Za-z0-9][A-Za-z0-9._-]{0,127}",
+                                 self.run_id)):
+            raise ValueError(
+                f"run_id must be a filesystem-safe slug "
+                f"([A-Za-z0-9._-], not starting with '.'), "
+                f"got {self.run_id!r}")
         if self.channel_profile is not None or self.channel_params:
             from repro_torch.net.channel import CHANNEL_PROFILES
             name = self.channel_profile
@@ -296,6 +304,9 @@ class ExperimentSpec:
             # knob names (and values, via construction) validated eagerly
             # so the error points at the spec
             self.resolved_channel()
+        if not isinstance(self.nonfinite_guard, bool):
+            raise ValueError(f"nonfinite_guard must be a bool, "
+                             f"got {self.nonfinite_guard!r}")
         if self.fault_profile is not None or self.fault_params:
             from repro_torch.faults.profile import FAULT_PROFILES
             name = self.fault_profile
@@ -313,21 +324,15 @@ class ExperimentSpec:
                 raise ValueError(
                     "return-fault injection does not support client-mesh "
                     "sharding yet (crash/checkpoint faults are fine)")
-        if self.run_id is not None and not (
-                isinstance(self.run_id, str)
-                and re.fullmatch(r"[A-Za-z0-9][A-Za-z0-9._-]{0,127}",
-                                 self.run_id)):
-            raise ValueError(
-                f"run_id must be a filesystem-safe slug "
-                f"([A-Za-z0-9._-], not starting with '.'), "
-                f"got {self.run_id!r}")
-        if not isinstance(self.nonfinite_guard, bool):
-            raise ValueError(f"nonfinite_guard must be a bool, "
-                             f"got {self.nonfinite_guard!r}")
         if not isinstance(self.hier_shards, int) \
                 or isinstance(self.hier_shards, bool) or self.hier_shards < 1:
             raise ValueError(f"hier_shards must be an int >= 1, "
                              f"got {self.hier_shards!r}")
+        if self.hier_shards > self.fl.n_clients:
+            raise ValueError(
+                f"hier_shards={self.hier_shards} exceeds "
+                f"fl.n_clients={self.fl.n_clients} (each edge-aggregator "
+                "shard needs at least one client)")
         if not isinstance(self.sample_fraction, (int, float)) \
                 or isinstance(self.sample_fraction, bool) \
                 or not 0.0 < float(self.sample_fraction) <= 1.0:
@@ -344,7 +349,13 @@ class ExperimentSpec:
             if self.channel_profile is not None or self.channel_params:
                 raise ValueError(
                     f"the hierarchical tier ({hier}) has no traced-channel "
-                    "path yet; drop channel_profile/channel_params")
+                    "path yet; drop channel_profile/channel_params "
+                    "(population traces: "
+                    "repro_torch.hier.generate_trace_chunked)")
+            if self.fault_profile is not None or self.fault_params:
+                raise ValueError(
+                    f"the hierarchical tier ({hier}) has no fault-injection "
+                    "path yet; drop fault_profile/fault_params")
             if self.adapt_every > 0:
                 raise ValueError(
                     f"the hierarchical tier ({hier}) runs the static coded "
@@ -354,14 +365,14 @@ class ExperimentSpec:
                 raise ValueError(
                     f"the hierarchical tier ({hier}) consumes embedded "
                     "client blocks; fused_embed is not supported")
-            if self.fault_profile is not None or self.fault_params:
-                raise ValueError(
-                    f"the hierarchical tier ({hier}) has no fault-injection "
-                    "path yet; drop fault_profile/fault_params")
             if self.secure_aggregation:
                 raise ValueError(
                     f"the hierarchical tier ({hier}) does not implement "
                     "secure aggregation of shard rows yet")
+            if self.mesh is not None:
+                raise ValueError(
+                    f"the hierarchical tier ({hier}) shards clients over "
+                    "edge aggregators, not a device mesh; drop mesh")
 
     @property
     def hier_active(self) -> bool:
@@ -460,8 +471,6 @@ class ExperimentSpec:
 def unsupported_features(spec: ExperimentSpec) -> list[str]:
     """Names of the features `spec` asks for that the port lacks."""
     checks = (
-        (spec.hier_active,
-         "the hierarchical tier (hier_shards/sample_fraction)"),
         (spec.mesh is not None, "client-mesh sharding (mesh)"),
     )
     return [name for asked, name in checks if asked]

@@ -1,7 +1,7 @@
 """Federated-learning runtime of the port: the flat engine on one device.
 
-The counterpart of ``repro.core.fed_runtime`` without the hierarchical
-tier or a client mesh.  The batched engine
+The counterpart of ``repro.core.fed_runtime`` without a client mesh (the
+hierarchical tier is `repro_torch.hier`).  The batched engine
 (``engine="batched"``) runs the fused coded round (``fused_coded=True``:
 the parity set is one more row of the round's single gradient launch) or
 the unfused one (``fused_coded=False``: a separate ``linreg_grad``
@@ -472,6 +472,14 @@ class Experiment:
             raise TypeError(
                 f"spec must be an ExperimentSpec, got {type(spec).__name__}"
                 " (build one with repro_torch.config.ExperimentSpec)")
+        if spec.hier_active:
+            raise ValueError(
+                f"spec requests the hierarchical tier (hier_shards="
+                f"{spec.hier_shards}, sample_fraction="
+                f"{spec.sample_fraction}) but was passed to the flat "
+                "engine; build it with repro_torch.api.build_experiment, "
+                "which routes hier-active specs to "
+                "repro_torch.hier.HierExperiment")
         missing = unsupported_features(spec)
         if missing:
             raise NotImplementedError(
@@ -872,9 +880,12 @@ class Experiment:
         ``eval_fn`` on every block.
         """
         if state.mode == "hier":
-            raise NotImplementedError(
-                "the PyTorch port does not support the hierarchical tier "
-                "yet (a 'hier' run)")
+            # the reference's flat run_block would run such a state as a
+            # single trajectory; its rounds belong to the hierarchical tier
+            raise ValueError(
+                "a 'hier' run belongs to the hierarchical tier "
+                "(repro_torch.hier.HierExperiment.run_block); the flat "
+                "engine does not run it")
         if state.done:
             raise ValueError(
                 "run is already complete "

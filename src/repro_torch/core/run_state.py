@@ -18,17 +18,17 @@ everything a checkpoint needs to resume it bit-identically after a kill:
     masked-return / skipped-round accumulators (`FedResult.health`),
   * with return faults, the fault stream's bit-generator state, and under
     stale replay the iterate the next round's stale rows read
-    (``theta_prev``, a tensor on the experiment's device).
-
-The reference's state also carries the hierarchical tier's sampling
-stream; the port does not run that tier yet: the field round-trips but is
-not read.
+    (``theta_prev``, a tensor on the experiment's device),
+  * for the hierarchical tier, the client-sampling stream's
+    bit-generator state (``sample_rng_state``).
 
 Modes: ``"single"`` (one trajectory, blocks advance the round cursor),
 ``"multi"`` (stationary `run_multi`, blocks advance all realizations'
-round cursors together) and ``"multi_channel"`` (traced `run_multi`, a
-block is one whole realization with its own trace) run in the port;
-``"hier"`` is known, so its payloads unpack, but does not run.
+round cursors together), ``"multi_channel"`` (traced `run_multi`, a
+block is one whole realization with its own trace) and ``"hier"`` (a
+`repro_torch.hier.HierExperiment` run: one trajectory over the shards,
+blocks advance the round cursor and both the delay and the sampling
+stream).
 
 `pack_state`/`unpack_state` convert to/from the (arrays, JSON-meta)
 payload of `repro_torch.checkpoint.io.save_state` with the reference's
@@ -80,6 +80,7 @@ class RunState:
       multi         t_rounds (R, r)  n_ret (R, r)  theta (R, q, c)
       multi_channel t_rounds (realizations_done, T), theta (R, q, c)
                     with rows past ``realizations_done`` still zero
+      hier          t_rounds (r,)    n_ret (r,)    theta (q, c)
     """
     mode: str
     iterations: int
@@ -105,7 +106,7 @@ class RunState:
     theta_prev: Any = None            # previous-round iterate (a tensor,
                                       # only under stale faults)
     fault_rng_state: Optional[dict] = None  # fault-stream RNG (PCG64)
-    sample_rng_state: Optional[dict] = None  # hier sampling (not ported)
+    sample_rng_state: Optional[dict] = None  # hier client-sampling RNG
 
     def __post_init__(self):
         if self.mode not in _MODES:

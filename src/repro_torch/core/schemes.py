@@ -464,6 +464,11 @@ def registered_names() -> tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+def coded_names() -> tuple[str, ...]:
+    """Names of the coded-family schemes (parity + load allocation)."""
+    return tuple(n for n, s in _REGISTRY.items() if s.coded)
+
+
 def grid_names() -> tuple[str, ...]:
     """Schemes of the default profile grid (the adaptive ones opt out)."""
     return tuple(n for n, s in _REGISTRY.items() if s.grid)

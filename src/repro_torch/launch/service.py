@@ -196,7 +196,7 @@ class ExperimentService:
         # with telemetry on, journal single-trajectory runs next to their
         # checkpoints (root/<run_id>/events.jsonl) — trimmed/regrown to
         # the restored state, so a resumed journal is extended in place
-        if obs_spans.enabled() and state.mode == "single":
+        if obs_spans.enabled() and state.mode in ("single", "hier"):
             run.journal = RunJournal(ckpt_dir)
             run.journal.reset_to(state.rounds_done)
             run.journal.sync(exp, state)

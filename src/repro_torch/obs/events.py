@@ -23,8 +23,9 @@ first block after a resume) can fill whatever suffix is missing, and a
 journal lost with its directory is fully regrown by the resumed run.
 `history_from_journal` reconstructs the exact ``FedResult.history`` list
 the runtime would have produced (same floats — JSON round-trips Python
-floats exactly).  The port has no hierarchical tier: a ``"hier"`` state
-raises `NotImplementedError`.
+floats exactly).  A hierarchical run (`repro_torch.hier.HierExperiment`,
+a ``"hier"`` state) journals one event a round too, with the per-shard
+deadlines ``t_star_s``.
 """
 from __future__ import annotations
 
@@ -163,9 +164,10 @@ class RunJournal:
     def sync(self, exp, state) -> int:
         """Append one event per round in [rounds_logged, rounds_done).
 
-        `exp` is the `Experiment` that produced `state` (the journal needs
-        its setup_time).  Returns the number of events appended.  Only
-        single-trajectory runs journal — one event per round has no
+        `exp` is the `Experiment` (or `HierExperiment`) that produced
+        `state` (the journal needs its setup_time and, for hier runs, the
+        per-shard deadlines).  Returns the number of events appended.
+        Only single-trajectory modes journal — one event per round has no
         meaning for a stack of realizations.
         """
         r1 = int(state.rounds_done)
@@ -178,12 +180,10 @@ class RunJournal:
 
 def events_from_state(exp, state, r0: int, r1: int) -> "list[dict]":
     """Events for global rounds [r0, r1) from a `RunState`'s accumulators
-    (which always cover the run from round 0)."""
-    if state.mode == "hier":
-        raise NotImplementedError(
-            "the PyTorch port does not support the hierarchical tier yet "
-            "(a 'hier' run)")
-    if state.mode != "single":
+    (which always cover the run from round 0).  A hierarchical run's
+    events carry every shard's deadline (``t_star_s``) and no masked or
+    skipped rounds."""
+    if state.mode not in ("single", "hier"):
         raise ValueError(
             f"run journals record single-trajectory runs; mode "
             f"{state.mode!r} has {state.n_realizations} realizations")
@@ -191,7 +191,7 @@ def events_from_state(exp, state, r0: int, r1: int) -> "list[dict]":
     t_rounds = np.asarray(state.t_rounds, np.float64)
     wall = float(exp.setup_time) + np.cumsum(t_rounds)
     n_ret = np.asarray(state.n_ret)
-    if state.n_masked is None:
+    if state.mode == "hier" or state.n_masked is None:
         n_masked = np.zeros(r1, np.int64)
         skipped = np.zeros(r1, np.int64)
     else:
@@ -200,14 +200,17 @@ def events_from_state(exp, state, r0: int, r1: int) -> "list[dict]":
     # effective lr multiplier AFTER each round: the divergence guard backs
     # off by LR_BACKOFF per skipped round (fed_runtime.build_step)
     lr_scale = LR_BACKOFF ** np.cumsum(skipped, dtype=np.float64)
+    t_star_s = None
+    if state.mode == "hier":
+        t_star_s = [float(p.t_star) for p in exp.plans]
     events = []
     for r in range(r0, r1):
-        if state.collect:
+        if state.mode == "single" and state.collect:
             loss = _null_if_nan(state.losses[r])
             acc = _null_if_nan(state.accs[r])
         else:
             loss = acc = None
-        events.append({
+        event = {
             "round": int(r),
             "t_round_s": float(t_rounds[r]),
             "wall_clock_s": float(wall[r]),
@@ -217,7 +220,10 @@ def events_from_state(exp, state, r0: int, r1: int) -> "list[dict]":
             "lr_scale": float(lr_scale[r]),
             "loss": loss,
             "accuracy": acc,
-        })
+        }
+        if t_star_s is not None:
+            event["t_star_s"] = t_star_s
+        events.append(event)
     return events
 
 

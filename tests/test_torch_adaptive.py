@@ -490,6 +490,10 @@ _REFUSALS = [
      lambda mod: dict(hier_shards=2, channel_profile="churn")),
     ("hier-adapt_every", "ValueError",
      lambda mod: dict(hier_shards=2, adapt_every=2)),
+    ("hier-mesh", "ValueError",
+     lambda mod: dict(hier_shards=2, mesh=2)),
+    ("hier-shards-exceed-clients", "ValueError",
+     lambda mod: dict(hier_shards=N + 1)),
     ("negative-adapt_every", "ValueError",
      lambda mod: dict(adapt_every=-1)),
     ("est_beta-out-of-range", "ValueError",

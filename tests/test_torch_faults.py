@@ -197,6 +197,8 @@ _REFUSED = [
     ("legacy-faults", dict(engine="legacy", fault_profile="chaos")),
     ("hier-faults", dict(hier_shards=2, fault_profile="flaky_clients")),
     ("hier-secure", dict(hier_shards=2, secure_aggregation=True)),
+    ("hier-shards-exceed-clients", dict(hier_shards=N + 1)),
+    ("hier-mesh", dict(hier_shards=2, mesh=2)),
 ]
 
 
@@ -206,6 +208,53 @@ def test_spec_refusals_match_reference(kw):
     for mod in (ref_config, t_config):
         with pytest.raises(ValueError):
             _spec(mod, **kw)
+
+
+# two faults at once: the spec names the one the reference checks first
+# (run_id before the channel, nonfinite_guard before the faults, the faults
+# right after the channel in the hierarchical block); the messages are the
+# reference's, with the port's module names
+_FIRST_REFUSAL = [
+    ("run_id-before-faults", dict(run_id=".bad", fault_profile="nope"),
+     "run_id"),
+    ("run_id-before-channel", dict(run_id=".bad", channel_profile="nope"),
+     "run_id"),
+    ("guard-before-faults", dict(nonfinite_guard="yes",
+                                 fault_profile="nope"), "nonfinite_guard"),
+    ("hier-faults-before-adapt", dict(hier_shards=2, adapt_every=2,
+                                      fault_profile="flaky_clients"),
+     "fault-injection"),
+    ("hier-faults-before-fused_embed",
+     dict(hier_shards=2, fault_profile="flaky_clients", fused_embed=True),
+     "fault-injection"),
+    ("hier-channel", dict(hier_shards=2, channel_profile="churn"),
+     "generate_trace_chunked"),
+    ("hier-shards-exceed-clients", dict(hier_shards=N + 1), "exceeds"),
+    ("hier-mesh", dict(hier_shards=2, mesh=2), "drop mesh"),
+]
+
+
+@pytest.mark.parametrize("kw,names", [(k, m) for _, k, m in _FIRST_REFUSAL],
+                         ids=[i for i, _, _ in _FIRST_REFUSAL])
+def test_spec_refusal_messages_match_reference(kw, names):
+    msgs = []
+    for mod in (ref_config, t_config):
+        over = dict(kw)
+        if over.get("fused_embed"):
+            over["rff"] = mod.RFFConfig(q=Q)
+        with pytest.raises(ValueError, match=names) as info:
+            _spec(mod, **over)
+        msgs.append(str(info.value))
+    assert msgs[1] == msgs[0].replace("repro.hier", "repro_torch.hier")
+
+
+def test_api_exports_the_fault_profiles():
+    for name in ("FAULT_PROFILES", "FaultProfile", "get_fault_profile"):
+        assert name in t_api.__all__ and name in ref_api.__all__
+    assert t_api.FAULT_PROFILES is t_faults.FAULT_PROFILES
+    assert t_api.get_fault_profile("chaos") == t_faults.FAULT_PROFILES["chaos"]
+    assert isinstance(t_api.get_fault_profile("chaos"), t_api.FaultProfile)
+    assert set(t_api.__all__) == set(ref_api.__all__)
 
 
 def test_service_faults_on_a_mesh_are_accepted_then_mesh_refused():

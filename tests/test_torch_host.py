@@ -169,14 +169,16 @@ def test_spec_round_trip_matches_reference(kw):
 
 
 # (id, spec fields, the feature the refusal names, a ported feature it
-# must no longer name): the ported ones ride along with a missing feature
-# (the hierarchical tier or the client mesh, the two the port lacks)
+# must no longer name): the ported ones ride along with the one missing
+# feature, the client mesh.  The hierarchical tier is ported; with a mesh
+# the spec itself refuses it, with the reference's ValueError
 _UNSUPPORTED = [
     ("channel dynamics", dict(channel_profile="static", mesh=2),
      "client-mesh", "channel"),
     ("fault injection", dict(fault_profile="crash_loop", mesh=2),
      "client-mesh", "fault injection"),
-    ("hierarchical", dict(hier_shards=2), "hierarchical", None),
+    ("hierarchical", dict(hier_shards=2, mesh=2), "not a device mesh",
+     "hierarchical tier (hier_shards"),
     ("client-mesh", dict(mesh=2), "client-mesh", None),
     ("secure aggregation", dict(secure_aggregation=True, mesh=2),
      "client-mesh", "secure aggregation"),
@@ -195,6 +197,18 @@ _UNSUPPORTED = [
                          [case[1:] for case in _UNSUPPORTED],
                          ids=[case[0] for case in _UNSUPPORTED])
 def test_unsupported_feature_raises_at_build(kw, feature, ported):
+    if kw.get("hier_shards", 1) > 1:
+        # refused when the spec is made, in both packages, as the
+        # reference refuses it; the tier itself is no missing feature
+        for mod in (ref_config, t_config):
+            with pytest.raises(ValueError, match=feature):
+                mod.ExperimentSpec(fl=mod.FLConfig(n_clients=4), **kw)
+        spec = t_config.ExperimentSpec(fl=t_config.FLConfig(n_clients=4),
+                                       hier_shards=2)
+        assert t_config.unsupported_features(spec) == []
+        assert ported not in " ".join(t_config.unsupported_features(
+            t_config.ExperimentSpec(mesh=2)))
+        return
     spec = t_config.ExperimentSpec(fl=t_config.FLConfig(n_clients=4), **kw)
     xs = np.zeros((4, 6, 8), np.float32)
     ys = np.zeros((4, 6, 2), np.float32)

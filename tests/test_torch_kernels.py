@@ -1192,3 +1192,63 @@ def test_gqa_decode_refuses_what_the_kernel_does_not_take(cuda):
         ops.gqa_decode(q, k, v, kp, 7)
     with pytest.raises(TypeError, match="int32"):
         ops.gqa_decode(q, k, v, kp.long(), 7)
+
+
+# ------------------------------------- the hierarchical tier's shard shapes
+# (n_s, u_s, l, q, c) of the tier's deployments: MNIST-RFF over 3 shards,
+# launch.hier_scale's example (l = 8) and launch.scale.run_scale (l = 4):
+# l = 4 and 8 against the 16-step K stage of the parity encode and the
+# 8-row slabs of the masked gradient
+_HIER_SHAPES = {"mnist_rff": (10, 800, 400, 2000, 10),
+                "example": (1000, 1600, 8, 16, 3),
+                "scale": (1000, 800, 4, 8, 2)}
+
+
+def _prefix_mask(n, l, seed):
+    """The tier's load-prefix masks: the first l*_j rows of each client."""
+    loads = np.random.default_rng(seed).integers(0, l + 1, (n, 1))
+    return (np.arange(l)[None, :] < loads).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(_HIER_SHAPES))
+def test_parity_encode_batched_kernel_at_hier_shapes(cuda, shape):
+    """The streamed shard encode: features and labels, reruns bit-equal."""
+    n, u, l, q, c = _HIER_SHAPES[shape]
+    g, w, x = _t(*_parity_inputs(n, u, l, q), device=cuda)
+    (y,) = _t(_np((n, l, c), 5), device=cuda)
+    for feat in (x, y):
+        got = ops.parity_encode_batched(g, w, feat)
+        again = ops.parity_encode_batched(g, w, feat)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _max_rel_err(got, ref.parity_encode_batched(g, w, feat)) \
+            < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(_HIER_SHAPES))
+def test_linreg_grad_masked_kernel_at_hier_shapes(cuda, shape):
+    """A shard's round: every row of (n_s, l, q) under the prefix mask."""
+    n, _, l, q, c = _HIER_SHAPES[shape]
+    x, theta, y, _ = _grad_inputs(n, l, q, c)
+    args = _t(x, theta, y, _prefix_mask(n, l, 7), device=cuda)
+    got = ops.linreg_grad_masked(*args)
+    again = ops.linreg_grad_masked(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _max_rel_err(got, ref.linreg_grad_masked(*args)) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(_HIER_SHAPES))
+def test_linreg_grad_kernel_at_hier_shapes(cuda, shape):
+    """A shard's coded gradient over its (u_s, q) parity set."""
+    _, u, _, q, c = _HIER_SHAPES[shape]
+    args = _t(_np((u, q), 1, 0.3), _np((q, c), 2, 0.3), _np((u, c), 3),
+              device=cuda)
+    got = ops.linreg_grad(*args)
+    again = ops.linreg_grad(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _max_rel_err(got, ref.linreg_grad(*args)) < 1e-5

@@ -401,15 +401,37 @@ def test_journal_dir_rejected_on_legacy_engine(tmp_path):
 
 
 def test_journal_refuses_multi_and_hier_states(tmp_path):
+    """A stack of realizations is refused; a hierarchical run journals one
+    event a round, with every shard's deadline (``t_star_s``), as the
+    reference's does."""
+    from repro_torch.hier import HierExperiment
     exp = _port_exp()
     state = exp.init_state(4, n_realizations=2)
     journal = t_events.RunJournal(str(tmp_path))
     state = exp.run_block(state)
     with pytest.raises(ValueError, match="single-trajectory"):
         journal.sync(exp, state)
-    hier = dataclasses.replace(state, mode="hier")
-    with pytest.raises(NotImplementedError, match="hierarchical tier"):
-        journal.sync(exp, hier)
+    xs, ys = _data()
+    # the chunked solver's many small float64 ops on one intra-op thread,
+    # so parallel test workers do not oversubscribe the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        hier = HierExperiment(
+            _spec(t_config, hier_shards=2, sample_fraction=0.5), xs, ys,
+            device="cpu", solver_kwargs=dict(n_golden_search=8, n_bisect=12,
+                                             n_golden=12))
+    finally:
+        torch.set_num_threads(threads)
+    hier_state = hier.run_block(hier.init_state(4))
+    hier_journal = t_events.RunJournal(str(tmp_path / "hier"))
+    assert hier_journal.sync(hier, hier_state) == 4
+    events = t_events.load_events(str(tmp_path / "hier"))
+    assert [e["round"] for e in events] == [0, 1, 2, 3]
+    assert all(e["t_star_s"] == [p.t_star for p in hier.plans]
+               and e["n_masked"] == 0 and e["skipped"] == 0
+               and e["loss"] is None for e in events)
+    assert [e["returned"] for e in events] == hier_state.n_ret.tolist()
     with pytest.raises(FileNotFoundError, match="no run journal"):
         t_events.load_events(str(tmp_path / "none"))
 
