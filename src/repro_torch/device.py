@@ -14,3 +14,11 @@ def resolve_device(device=None) -> torch.device:
             f"device {dev} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain versions on the CPU")
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the card's queued work where `device` is a CUDA device (a
+    no-op elsewhere): the end of a timed host interval."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

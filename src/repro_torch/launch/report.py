@@ -29,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.obs import spans as obs_spans
 from repro_torch.obs.events import (histories_equal, history_from_journal,
                                     load_events)
@@ -146,11 +146,6 @@ def render_report(run_dir: str, *, top: int = 5, max_rounds: int = 12) -> str:
 
 
 # ------------------------------------------------------------- benchmark
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_telemetry(kernel_backend: str = "xla", n_clients: int = 12,
                   l: int = 256, q: int = 256, c: int = 8, iters: int = 120,
                   block: int = 40, repeats: int = 3, seed: int = 0,
@@ -192,10 +187,10 @@ def run_telemetry(kernel_backend: str = "xla", n_clients: int = 12,
         return Experiment(spec, xs, ys, device=dev)
 
     def timed(fn) -> float:
-        _sync(dev)
+        synchronize(dev)
         t0 = time.perf_counter()
         fn()
-        _sync(dev)
+        synchronize(dev)
         return time.perf_counter() - t0
 
     prev_enabled = obs_spans.enabled()

@@ -25,7 +25,7 @@ import time
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, smoke_variant
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.launch.train import make_batch
 from repro_torch.models.model_zoo import build
 
@@ -39,11 +39,6 @@ class ServeResult:
     decode_ms_per_step: float    # mean of the later steps (warm)
     tokens_per_s: float          # batch * (gen_len - 1) / decode time
     device: str
-
-
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def serve(cfg, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
@@ -64,12 +59,12 @@ def serve(cfg, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
     prompt = {"tokens": b["tokens"].to(dev)}
     max_seq = prompt_len + gen_len
 
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, prompt, window=window,
                                   cache_len=max_seq if window == 0 else None)
     tokens = logits.argmax(dim=-1)[:, None].to(torch.int32)
-    _sync(dev)
+    synchronize(dev)
     prefill_s = time.perf_counter() - t0
 
     out = [tokens]
@@ -81,9 +76,9 @@ def serve(cfg, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
         tokens = logits.argmax(dim=-1)[:, None].to(torch.int32)
         out.append(tokens)
         if i == 0:
-            _sync(dev)
+            synchronize(dev)
             first_s = time.perf_counter() - t0
-    _sync(dev)
+    synchronize(dev)
     decode_s = time.perf_counter() - t0
     steps = gen_len - 1
     warm = (decode_s - first_s) / (steps - 1) if steps > 1 else first_s

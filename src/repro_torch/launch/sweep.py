@@ -35,7 +35,7 @@ from repro_torch.config import ExperimentSpec, FLConfig, TrainConfig
 from repro_torch.core import fed_runtime
 from repro_torch.core import schemes as schemes_registry
 from repro_torch.core.fed_runtime import Experiment, MultiFedResult
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 
 #: import-time snapshot of the grid schemes, in registration order; the
 #: run_sweep default re-reads the live registry at call time.  Adaptive
@@ -199,7 +199,7 @@ def run_sweep(x_stack, y_stack, *, profiles: dict,
         step = fed_runtime.build_step(static)
         cols = {}
         thetas = {}
-        _sync(first.device)
+        synchronize(first.device)
         t0 = time.perf_counter()
         for p in names:
             sim = scheme_sims[p]
@@ -211,7 +211,7 @@ def run_sweep(x_stack, y_stack, *, profiles: dict,
             thetas[p] = torch.stack([carry[0] for carry, _ in runs])
             cols[p] = [torch.stack(col) for col in
                        zip(*(c for _, c in runs))]
-        _sync(first.device)
+        synchronize(first.device)
         host_seconds[scheme] = time.perf_counter() - t0
 
         per_profile = {}
@@ -227,8 +227,3 @@ def run_sweep(x_stack, y_stack, *, profiles: dict,
         results[scheme] = per_profile
     return SweepResult(results=results, sims=all_sims,
                        host_seconds=host_seconds)
-
-
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
