@@ -186,7 +186,33 @@ Phases, each printed as one JSON object per line:
              a 4096-token prompt (a rolling cache);
  25. serve_cpu: the qwen3-4b smoke variant served on the card and on the
              CPU (plain versions): identical tokens, logits within tolerance;
- 26. kernel: each kernel against its plain PyTorch version on the card, at
+ 26. train:  the model zoo's training path, after the serving model is
+             freed.  full: qwen3-4b at full width (36 layers, d_model 2560,
+             bf16) from seeded weights, Adam, the train CLI's
+             --full-config defaults (20 steps, batch 4, seq 64) through
+             repro_torch.launch.train.train: finite losses, warm ms/step
+             (median of steps 2-19) and tokens/s beside the step's bound
+             (bytes: the params read by forward and backward, the grads
+             written, Adam's reads and writes of p, g, m, v), the peak
+             memory beside the reckoned state, the gradient and the update
+             timed apart and one step under torch.profiler, and a rerun
+             from the same seed with the same losses bit for bit.  check:
+             qwen3-4b's widths at 2 layers in float32, the loss and every
+             gradient leaf on the card against the CPU, then 3 Adam steps
+             of train() on both.  federated: launch.train_llm_federated
+             .main at --params 100m for 60 steps (8 clients, batch 2, seq
+             128): the losses fall, t*, the loads, sim_wall and each
+             step's returned clients equal to the host replay of the delay
+             draws, ms/step; the 20m model 3 steps on the card and on the
+             CPU.  probe: core.coded_probe.coded_probe_training on the
+             full-width bf16 backbone (8 clients of 64 rows of 128 tokens,
+             3 classes linear in the features, rff_q 256, 100 rounds):
+             launches asserted (8 rff_embed, 2 parity_encode_batched, 100
+             linreg_grad_masked, no linreg_grad: the fused coded round),
+             training accuracy > 0.5, theta against a CPU run of the FL
+             half on the same features and (Omega, delta), the extraction
+             and setup seconds;
+ 27. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
              tile multiple; times with CUDA events.  linreg_grad_masked at
@@ -214,7 +240,8 @@ Phases, each printed as one JSON object per line:
              for 3xTF32 in f32; bf16 tensor cores in bf16; the
              contractions at the FFMA peak).  linreg_grad is timed at the
              parity set and at one legacy client, each with its library
-             time and its device time (torch.profiler).  rff_embed is
+             time and its device time (device_ms: CUDA events behind a
+             spin kernel, no host gap inside).  rff_embed is
              checked at edges around its 128 x 128 tile and 16-step K stage
              (and x off a 16-byte boundary), with a NaN feature and a rerun,
              and timed by events and on the device beside addmm + cos, its
@@ -225,7 +252,7 @@ Phases, each printed as one JSON object per line:
              by events, on the device (device_ms, library_device_ms) and on
              the host (host_ms: the wrapper's enqueue), beside SDPA with its
              mask made once outside the timed calls;
- 27. the kernels table, then the final line
+ 28. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -335,6 +362,7 @@ SERVE_ARCH = "qwen3-4b"
 SERVE = dict(batch=8, prompt_len=4096, gen_len=64, window=0, seed=0)
 CHECK_LAYERS = 4               # serve_check's depth cut
 PROFILE_STEPS = 4              # decode steps under torch.profiler
+SPIN_CYCLES = 40_000_000       # device_ms's spin: ~20 ms at the SM clock
 CHECK_GEN = 8
 CHECK_WINDOW = 1024
 SMOKE_SERVE = dict(batch=4, prompt_len=64, gen_len=16, seed=0)
@@ -348,6 +376,31 @@ SMOKE_LOGIT_ATOL = 1e-4
 # gqa_decode in bfloat16: kernel and plain version round the same float32
 # result to bf16, at most one ulp (2^-8 relative) apart
 BF16_REL_TOL = 2 ** -7
+
+# the training phase: qwen3-4b at full width, bf16, Adam, at the train
+# CLI's defaults; the card/CPU check at its widths, 2 layers, float32
+TRAIN_ARCH = "qwen3-4b"
+TRAIN = dict(steps=20, batch=4, seq=64, seed=0)
+TRAIN_SPLIT_STEPS = 3          # steps timed with a sync between halves
+TRAIN_CHECK = dict(n_layers=2, batch=2, seq=64, steps=3)
+# examples/train_llm_federated.py --params 100m (its defaults: 8 clients,
+# batch 2, seq 128) at 60 steps, not the example's 300: a step is ~0.5 s
+# of host-bound eager autograd on the H100 (8 clients' backward passes),
+# and 300 steps took 206 s, past the phase's time; the 20m model card vs CPU
+FED = dict(params="100m", steps=60, clients=8, batch=2, seq=128)
+FED_CHECK_STEPS = 3
+# the coded probe on the full-width backbone (tests/test_coded_probe.py's
+# data recipe at n = 8, l = 64, S = 128)
+PROBE = dict(n=8, l=64, seq=128, classes=3, rff_q=256, iterations=100,
+             delta=0.25)
+# the CPU tests' tolerances (tests/test_torch_train.py): loss relative,
+# each gradient leaf relative to its largest |g|, losses after Adam steps;
+# bf16 losses; theta of the FL half card vs CPU relative to its largest
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_LEAF_TOL = 1e-5
+TRAIN_STEPS_TOL = 1e-4
+TRAIN_BF16_TOL = 1e-3
+PROBE_THETA_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -432,13 +485,49 @@ def device_kernels_ms(torch, fn, reps: int, tries: int = 3) -> dict:
     return best
 
 
-def device_ms(torch, fn, reps: int) -> float:
-    """ms of device time per call (kernels, copies, fills), from
-    torch.profiler over `reps` calls after one warm-up: the time the card
-    spends, without the host's gaps between calls."""
+def busy_ms(torch, fn, reps: int) -> float:
+    """ms of device busy time per call (kernels, copies, fills), from
+    torch.profiler over `reps` calls after one warm-up: for calls that wait
+    on the card inside (a whole round loop), where the host's gaps cannot
+    be kept out of an events window.  A lower bound: the profiler can drop
+    device records (see device_ms)."""
     total = sum(device_kernels_ms(torch, fn, reps).values())
     check(total > 0, "the profiler saw no device time")
     return total
+
+
+def device_ms(torch, fn, reps: int, tries: int = 4) -> float:
+    """ms of device time per call (kernels, copies, fills) of a call that
+    does not wait on the card: CUDA events around `reps` calls after one
+    warm-up, enqueued behind a spin kernel that holds the stream while the
+    host enqueues them, so that no host gap falls between the events.  The
+    spin's own events show that it outlasted the enqueue; it is doubled
+    until it does.  (torch.profiler drops the device records of short
+    windows on the card, more of them the longer a process has profiled:
+    a window of 10 one-microsecond kernels kept 10, then 8, 7, 5, 4, 3 of
+    them over 110 s, and none after a window of 40,000; see PERF.md.)"""
+    fn()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for _ in range(tries):
+        spin0, start, end = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        t0 = time.perf_counter()
+        spin0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if spin0.elapsed_time(start) > enqueue_ms:
+            t = start.elapsed_time(end) / reps
+            check(t > 0, "the events saw no device time")
+            return t
+        cycles *= 4
+    raise RuntimeError("device_ms: the spin never outlasted the host's "
+                       "enqueue of the calls")
 
 
 def max_err(torch, got, want, rel_tol=REL_TOL) -> tuple[float, float]:
@@ -1262,7 +1351,7 @@ def channel_path(torch, dev, state) -> None:
             name: {"ms": v, "median": float(np.median(v)),
                    # the card's busy time a round (torch.profiler over two
                    # warm runs): what the host leaves idle is the rest
-                   "device_ms_per_round": device_ms(
+                   "device_ms_per_round": busy_ms(
                        torch, lambda: pair[name].run(ROUNDS), 2) / ROUNDS}
             for name, v in ms.items()}
     emit({"phase": "channel", "profile": CHANNEL,
@@ -2983,6 +3072,426 @@ def serve_cpu(torch, dev, state) -> None:
               f"differ by {err}")
 
 
+def _adam_reference_order(params, grads, state, lr, b1=0.9, b2=0.999,
+                          eps=1e-8):
+    """Adam's update in the reference's element-wise order
+    (``repro.optim.optimizers.adam``: each product and sum its own pass),
+    in place a leaf at a time: the plain version the port's fused update
+    is timed against."""
+    import torch
+    t = state["t"] + 1
+    bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(t))
+    bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(t))
+    with torch.no_grad():
+        for k, p in params.items():
+            g = grads[k].float()
+            m, v = state["m"][k], state["v"][k]
+            m.mul_(b1).add_(g * (1 - b1))
+            v.mul_(b2).add_(g.square().mul_(1 - b2))
+            del g
+            upd = (m / bc1).mul_(lr).div_((v / bc2).sqrt_().add_(eps))
+            p.copy_(p.float() - upd)
+            del upd
+    state["t"] = t
+
+
+def _train_step_split(torch, cfg, params, B: int, S: int) -> dict:
+    """Where a warm full-width step goes: the gradient (forward and
+    backward) and the Adam update timed apart (synced between them, median
+    of TRAIN_SPLIT_STEPS steps from fresh optimizer state), the fused
+    update against the reference's element-wise order in turns, then
+    torch.profiler over one more step: device busy, its idle share, the
+    top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizers
+
+    named = dict(params.named_parameters())
+    init, update = optimizers.adam()
+    opt = init(named)
+
+    def step(i):
+        b = make_batch(cfg, B, S, 1000 + i)
+        loss = transformer.loss_fn(cfg, params, b, remat=False)
+        loss.backward()
+        grads = {k: p.grad for k, p in named.items()}
+        for p in named.values():
+            p.grad = None
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        update(named, grads, opt, 1e-5)
+        t3 = time.perf_counter()
+        del grads
+        torch.cuda.synchronize()
+        return t1, t2, t3, time.perf_counter()
+
+    grad_ms, adam_ms, adam_host_ms = [], [], []
+    for i in range(TRAIN_SPLIT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, t2, t3, t4 = step(i)
+        grad_ms.append((t2 - t0) * 1e3)
+        adam_ms.append((t4 - t2) * 1e3)
+        adam_host_ms.append((t3 - t2) * 1e3)
+    # the port's fused Adam update against the reference's element-wise
+    # order on the same gradients and state, in turns
+    b = make_batch(cfg, B, S, 999)
+    transformer.loss_fn(cfg, params, b, remat=False).backward()
+    grads = {k: p.grad for k, p in named.items()}
+    for p in named.values():
+        p.grad = None
+    turns = {"fused": [], "reference_order": []}
+    for name in ("reference_order", "fused", "fused", "reference_order") * 2:
+        fn = update if name == "fused" else _adam_reference_order
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(named, grads, opt, 1e-5)
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) * 1e3)
+    del grads
+    # two windows of one step each: the device's ops alone, then the
+    # host's alone (a step is ~40k aten calls; one trace of both kinds
+    # left the profiler seeing no device time in a later phase)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(TRAIN_SPLIT_STEPS)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {evt.key: evt.device_time_total / 1e3
+               for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(TRAIN_SPLIT_STEPS + 1)
+    aten = sum(evt.count for evt in prof.key_averages()
+               if evt.key.startswith("aten::"))
+    del prof
+    busy = sum(by_name.values())
+    check(busy > 0, "train full (profiled): the trace holds no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    del opt
+    return {"grad_ms": float(np.median(grad_ms)),
+            "adam_ms": float(np.median(adam_ms)),
+            "adam_host_enqueue_ms": float(np.median(adam_host_ms)),
+            "adam_fused_ms": float(np.median(turns["fused"])),
+            "adam_reference_order_ms": float(np.median(
+                turns["reference_order"])),
+            "profiled_step_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+            "aten_calls_per_step": aten,
+            "top_device_ms": [[k[:90], t] for k, t in top]}
+
+
+def _train_full(torch, dev, state) -> None:
+    """qwen3-4b at full width, bf16, Adam: the CLI's --full-config run
+    (20 steps, batch 4, seq 64), warm ms/step beside the step's bound, the
+    peak memory, and a rerun from the same seed, loss for loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer
+
+    cfg = get_config(TRAIN_ARCH)
+    steps, B, S = TRAIN["steps"], TRAIN["batch"], TRAIN["seq"]
+    runs = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, seed=TRAIN["seed"], device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        hist = {}
+        params, losses, _ = train(cfg, steps=steps, batch=B, seq=S,
+                                  log_every=0, seed=TRAIN["seed"],
+                                  device=dev, params=params, history=hist)
+        peak = torch.cuda.max_memory_allocated()
+        runs.append((losses, hist["step_s"], peak, init_s))
+        n_params = sum(p.numel() for p in params.parameters())
+        embed_numel = params.embed.numel()
+        elem = params.embed.element_size()
+        if len(runs) == 1:
+            split = _train_step_split(torch, cfg, params, B, S)
+        del params
+        _release(torch)
+    (losses, step_s, peak, init_s), (losses2, step_s2, _, _) = runs
+    warm_ms = float(np.median(step_s[2:])) * 1e3
+    # the step's least time: the params read by the forward and by the
+    # backward, the grads written, Adam's reads of p, g, m, v and writes of
+    # p, m, v (m, v float32); against 6 flops a matmul weight a token on
+    # the bf16 tensor cores (the embedding is a gather)
+    adam_bytes = n_params * (elem + elem + 4 + 4 + elem + 4 + 4)
+    step_bytes = n_params * 3 * elem + adam_bytes
+    step_flops = 6.0 * (n_params - embed_numel) * B * S
+    bound_ms, bound_by = bound(step_bytes, 0.0, bf16_flops=step_flops)
+    state_bytes = n_params * (elem + elem + 4 + 4)
+    finite = all(math.isfinite(x) for x in losses)
+    same = losses == losses2
+    emit({"phase": "train", "part": "full", "arch": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "params": n_params, "optimizer": "adam",
+          **TRAIN, "init_s": init_s, "losses": losses,
+          "losses_finite": finite, "first_step_ms": step_s[0] * 1e3,
+          "warm_ms_per_step": warm_ms,
+          "warm_ms_per_step_rerun": float(np.median(step_s2[2:])) * 1e3,
+          "tokens_per_s": B * S / (warm_ms / 1e3),
+          "peak_bytes": peak, "reckoned_state_bytes": state_bytes,
+          "step_bytes": step_bytes, "step_flops": step_flops,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "step_over_bound": warm_ms / bound_ms,
+          "rerun_losses_identical": same, **split,
+          "source": "train() steps synced at their ends (history step_s); "
+          "median over steps 2..19; the split from the same step driven "
+          "with syncs between its halves, the profile over one step"})
+    check(finite, f"train full: a loss is not finite: {losses}")
+    check(same, f"train full: the rerun's losses differ: {losses} against "
+          f"{losses2}")
+    state["train"] = {"warm_ms_per_step": warm_ms, "bound_ms": bound_ms}
+
+
+def _train_check(torch, dev, state) -> None:
+    """qwen3-4b's widths at TRAIN_CHECK["n_layers"] layers in float32: the
+    loss and every gradient leaf on the card against the CPU, then 3 Adam
+    steps of train() on both."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import make_batch, train
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CHECK["n_layers"],
+                              dtype="float32")
+    B, S = TRAIN_CHECK["batch"], TRAIN_CHECK["seq"]
+    cpu_params = transformer.init_params(cfg, seed=1, device="cpu")
+    batch = make_batch(cfg, B, S, 1)
+    out = {}
+    for where in (dev, "cpu"):
+        params = (copy.deepcopy(cpu_params).to(where) if where == dev
+                  else cpu_params)
+        params.requires_grad_(True)
+        t0 = time.perf_counter()
+        # remat on the card, not on the CPU: the comparison holds both
+        loss = transformer.loss_fn(cfg, params, batch,
+                                   remat=where == dev)
+        loss.backward()
+        grads = {k: p.grad.cpu() for k, p in params.named_parameters()}
+        out[where == dev] = (float(loss.detach()), grads,
+                             time.perf_counter() - t0)
+        params.requires_grad_(False)
+        for p in params.parameters():
+            p.grad = None
+        del params
+    (loss_d, g_d, sec_d), (loss_c, g_c, sec_c) = out[True], out[False]
+    loss_err = abs(loss_d - loss_c) / abs(loss_c)
+    worst, worst_key = 0.0, None
+    for key, want in g_c.items():
+        err = float((g_d[key] - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if not err <= worst:
+            worst, worst_key = err, key
+    del g_d, g_c
+    _release(torch)
+    steps = {}
+    for where in (dev, "cpu"):
+        params = copy.deepcopy(cpu_params)
+        t0 = time.perf_counter()
+        _, losses, _ = train(cfg, steps=TRAIN_CHECK["steps"], batch=B,
+                             seq=S, log_every=0, seed=1, device=where,
+                             params=params)
+        steps[where == dev] = (losses, time.perf_counter() - t0)
+        del params
+        _release(torch)
+    (l_d, s_d), (l_c, s_c) = steps[True], steps[False]
+    step_err = max(abs(a - b) / abs(b) for a, b in zip(l_d, l_c))
+    emit({"phase": "train", "part": "check", "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype,
+          "batch": B, "seq": S, "loss_card": loss_d, "loss_cpu": loss_c,
+          "loss_rel_err": loss_err, "grad_leaves": len(out[True][1]),
+          "worst_grad_leaf_err": worst, "worst_grad_leaf": worst_key,
+          "loss_rel_tol": TRAIN_LOSS_TOL, "grad_leaf_tol": TRAIN_LEAF_TOL,
+          "adam_losses_card": l_d, "adam_losses_cpu": l_c,
+          "adam_loss_rel_err": step_err, "adam_rel_tol": TRAIN_STEPS_TOL,
+          "grad_s_card": sec_d, "grad_s_cpu": sec_c,
+          "adam_s_card": s_d, "adam_s_cpu": s_c,
+          "tol_reason": "the CPU tests' tolerances (tests/"
+          "test_torch_train.py): float32 sums in another order"})
+    check(loss_err <= TRAIN_LOSS_TOL, f"train check: loss {loss_d} on the "
+          f"card, {loss_c} on the CPU")
+    check(worst <= TRAIN_LEAF_TOL, f"train check: grad leaf {worst_key} "
+          f"{worst} apart")
+    check(step_err <= TRAIN_STEPS_TOL, f"train check: Adam losses {l_d} "
+          f"against {l_c}")
+    del cpu_params
+
+
+def _replay_federated(fl, plan, steps: int, seed: int) -> list:
+    """Each step's returned clients, replayed from the delay stream
+    default_rng(seed + 5): one draw a client a step, in client order."""
+    nodes, alloc, _ = plan
+    rng = np.random.default_rng(seed + 5)
+    return [[j for j in range(fl.n_clients)
+             if nodes[j].sample(rng, float(alloc.loads[j]))[0]
+             <= alloc.t_star] for _ in range(steps)]
+
+
+def _train_federated(torch, dev, state) -> None:
+    """train_llm_federated.main at its full-scale settings on the card,
+    held against the host replay of its delay draws; the 20m model for
+    FED_CHECK_STEPS steps on the card and on the CPU."""
+    import copy
+
+    from repro_torch.config import FLConfig
+    from repro_torch.launch import train_llm_federated as tlf
+    from repro_torch.launch.train import federated_plan, train
+    from repro_torch.models import transformer
+
+    hist = {}
+    t0 = time.perf_counter()
+    losses, sim_wall = tlf.main(FED["params"], steps=FED["steps"],
+                                clients=FED["clients"], batch=FED["batch"],
+                                seq=FED["seq"], device=dev, history=hist)
+    run_s = time.perf_counter() - t0
+    cfg = tlf.model_cfg(FED["params"])
+    fl = FLConfig(n_clients=FED["clients"])
+    n_param = sum(p.numel() for p in
+                  transformer.abstract_params(cfg).parameters())
+    plan = federated_plan(fl, n_param, FED["batch"], FED["seq"])
+    replay = _replay_federated(fl, plan, FED["steps"], 0)
+    t_star = plan[1].t_star
+    same_plan = (hist["t_star"] == t_star
+                 and hist["loads"] == list(plan[1].loads))
+    same_returned = hist["returned"] == replay
+    wall_ok = sim_wall == FED["steps"] * t_star
+    n_nan = sum(1 for x in losses if math.isnan(x))
+    step_ms = float(np.median(hist["step_s"][2:])) * 1e3
+    emit({"phase": "train", "part": "federated", **FED,
+          "params_counted": n_param, "t_star": t_star,
+          "loads": hist["loads"], "p_ret": hist["p_ret"],
+          "sim_wall": sim_wall, "sim_wall_equals_replay": wall_ok,
+          "plan_equals_replay": same_plan,
+          "returned_equal_replay": same_returned,
+          "returned_mean": float(np.mean([len(r) for r in replay])),
+          "nan_steps": n_nan, "loss_first": losses[0],
+          "loss_last": losses[-1], "run_s": run_s,
+          "warm_ms_per_step": step_ms,
+          "ms_per_returned_client": step_ms / max(
+              np.mean([len(r) for r in replay[2:]]), 1e-9)})
+    check(same_plan and same_returned and wall_ok, "train federated: the "
+          "run differs from the host replay of its delay draws")
+    # the 20m model, card against CPU, from the same seeded weights
+    cfg20 = tlf.model_cfg("20m")
+    start = transformer.init_params(cfg20, seed=0, device="cpu")
+    runs = {}
+    for where in (dev, "cpu"):
+        h = {}
+        _, l20, w20 = train(cfg20, steps=FED_CHECK_STEPS, batch=FED["batch"],
+                            seq=FED["seq"], federated=True, fl_cfg=fl,
+                            log_every=0, device=where,
+                            params=copy.deepcopy(start), history=h)
+        runs[where == dev] = (l20, w20, h["returned"])
+    (ld, wd, rd), (lc, wc, rc) = runs[True], runs[False]
+    err = max(abs(a - b) / abs(b) for a, b in zip(ld, lc))
+    emit({"phase": "train", "part": "federated_cpu", "params": "20m",
+          "dtype": cfg20.dtype, "steps": FED_CHECK_STEPS,
+          "losses_card": ld, "losses_cpu": lc, "loss_rel_err": err,
+          "tol": TRAIN_BF16_TOL, "returned_equal": rd == rc,
+          "sim_wall_equal": wd == wc,
+          "tol_reason": "bf16 losses through 3 Adam steps (the CPU tests' "
+          "bf16 loss tolerance; port against reference on the CPU: 2.4e-5)"})
+    check(rd == rc and wd == wc, "train federated_cpu: returned sets or "
+          "wall clock differ")
+    check(err <= TRAIN_BF16_TOL, f"train federated_cpu: losses {ld} "
+          f"against {lc}")
+    state["train"]["federated_ms_per_step"] = step_ms
+
+
+def _train_probe(torch, dev, state) -> None:
+    """The coded linear-probe head on the qwen3-4b backbone at full width
+    (bf16, frozen): kernels 1, 2, 3 (and 5) counted, accuracy, theta
+    against a CPU run of the FL half on the same features."""
+    from repro_torch.config import FLConfig
+    from repro_torch.core import coded_probe
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer
+    from repro_torch.obs import spans as obs_spans
+
+    cfg = get_config(TRAIN_ARCH)
+    n, l, S, C = PROBE["n"], PROBE["l"], PROBE["seq"], PROBE["classes"]
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, size=(n, l, S)).astype(np.int32)
+
+    # the labels' features (the CPU twin's too): the extraction timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = np.stack([coded_probe.extract_features(cfg, params, tokens[j],
+                                                   device=dev)
+                      for j in range(n)])
+    extract_s = time.perf_counter() - t0
+    w = rng.normal(size=(feats.shape[-1], C))
+    labels = np.argmax(np.einsum("nld,dc->nlc", feats, w),
+                       axis=-1).astype(np.int64)
+    fl = FLConfig(n_clients=n, delta=PROBE["delta"])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with obs_spans.collecting() as spans:
+        res, (omega, delta) = coded_probe.coded_probe_training(
+            cfg, params, tokens, labels, n_classes=C, fl_cfg=fl,
+            rff_q=PROBE["rff_q"], iterations=PROBE["iterations"],
+            device=dev)
+        torch.cuda.synchronize()
+        totals = spans.totals()
+    total_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    want = {"rff_embed": n, "parity_encode_batched": 2,
+            "linreg_grad_masked": PROBE["iterations"], "linreg_grad": 0,
+            "rff_linreg_grad_masked": 0, "parity_encode": 0,
+            "gqa_decode": 0}
+    # accuracy on the clients' own rows, the embedding's plain version
+    x = torch.from_numpy(feats.reshape(n * l, -1)).to(dev)
+    pred = (ref.rff_embed(x, omega, delta) @ res.theta).argmax(1).cpu()
+    acc = float((pred.numpy() == labels.reshape(-1)).mean())
+    cpu, _ = coded_probe.probe_head(
+        feats, labels, C, fl, PROBE["rff_q"], PROBE["iterations"],
+        device="cpu", rff_draw=(omega.cpu(), delta.cpu()))
+    theta_c = cpu.theta
+    theta_err = float((res.theta.cpu() - theta_c).abs().max()) / max(
+        float(theta_c.abs().max()), 1e-30)
+    setup = {k: v for k, v in totals.items()
+             if k in ("setup/experiment", "solver/two_step", "encode/parity")}
+    emit({"phase": "train", "part": "probe", "arch": cfg.name,
+          "dtype": cfg.dtype, **PROBE, "launches": launches,
+          "expected_launches": want, "extract_s": extract_s,
+          "setup_spans": setup, "total_s": total_s,
+          "t_star": res.t_star, "t_star_cpu": cpu.t_star,
+          "wall_clock": res.history[-1].wall_clock,
+          "train_accuracy": acc, "theta_rel_err_cpu": theta_err,
+          "theta_tol": PROBE_THETA_TOL,
+          "tol_reason": "the FL half on the same features: the RFF map "
+          "in 3xTF32 against float32, carried through the rounds"})
+    check(launches == want, f"train probe: launches {launches}, expected "
+          f"{want}")
+    check(acc > 0.5, f"train probe: training accuracy {acc}")
+    check(res.t_star == cpu.t_star and theta_err <= PROBE_THETA_TOL,
+          f"train probe: theta {theta_err} from the CPU run's")
+    del params, res, x
+    _release(torch)
+
+
+def train_path(torch, dev, state) -> None:
+    """The model zoo's training path on the card (after the serve
+    phases): full-width Adam, the 2-layer card/CPU check, federated
+    deadline aggregation, the coded probe."""
+    for part in (_train_full, _train_check, _train_federated, _train_probe):
+        t0 = time.perf_counter()
+        part(torch, dev, state)
+        emit({"phase": "train", "part": part.__name__.lstrip("_"),
+              "part_seconds": time.perf_counter() - t0})
+
+
 def gqa_checks(torch, dev, state) -> dict:
     """gqa_decode against its plain version at the serving shape (bf16 and
     float32) and at edge shapes; kernel, plain, SDPA and bound times."""
@@ -3796,7 +4305,7 @@ def main() -> int:
                   quickstart_path, channel_path, adaptive_path, faults_path,
                   secure_agg_path, sweep_path, telemetry_path, service_path,
                   hier_path, hier_scale_path, bench_path, serve_path,
-                  serve_check, serve_cpu):
+                  serve_check, serve_cpu, train_path):
         t0 = time.perf_counter()
         phase(torch, dev, state)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})

@@ -25,7 +25,13 @@ them into the port's tensors:
   * `theta_from_reference`: a (q, c) model iterate;
   * `model_params_from_reference`: the model zoo's weights (the param
     pytree of ``repro.models.model_zoo.build(cfg).init_params``), for
-    ``repro_torch.launch.serve.serve(..., params=...)``.
+    ``repro_torch.launch.serve.serve(..., params=...)`` and
+    ``repro_torch.launch.train.train(..., params=...)``;
+  * `model_params_to_reference`, its inverse: a port `Transformer` as the
+    reference's pytree (layers stacked again), NumPy arrays, and
+    `reference_layout`, that tree's key paths and shapes without reading
+    a weight (``repro_torch.checkpoint.io`` writes and checks the
+    reference's param-tree files with them).
 
 This module imports neither ``jax`` nor ``repro``: the caller does the
 drawing.
@@ -126,3 +132,59 @@ def model_params_from_reference(params_np, cfg, device=None):
     return transformer.Transformer(cfg, w(params_np["embed"]),
                                    w(params_np["final_norm"]), lm_head,
                                    layers)
+
+
+def _layer_leaves(params) -> dict:
+    """{reference key path: the tensors it stacks (one a layer) or the one
+    tensor it holds}, in the reference's tree order."""
+    layers = params.layers
+    first = layers[0]
+    out = {"embed": params.embed, "final_norm": params.final_norm}
+    if params.lm_head is not None:
+        out["lm_head"] = params.lm_head
+    stage = "stage0/l0/"
+    for name in sorted(first.attn):
+        out[stage + "attn/" + name] = [layer.attn[name] for layer in layers]
+    for name in sorted(first.ffn):
+        out[stage + "ffn/" + name] = [layer.ffn[name] for layer in layers]
+    out[stage + "ln1"] = [layer.ln1 for layer in layers]
+    out[stage + "ln2"] = [layer.ln2 for layer in layers]
+    return out
+
+
+def reference_layout(params) -> dict:
+    """{key path of the reference's tree: (shape, torch dtype)} of a port
+    `Transformer` (also one on the ``meta`` device); stacked layers have
+    the layer axis first."""
+    out = {}
+    for key, leaf in _layer_leaves(params).items():
+        if isinstance(leaf, list):
+            out[key] = ((len(leaf),) + tuple(leaf[0].shape), leaf[0].dtype)
+        else:
+            out[key] = (tuple(leaf.shape), leaf.dtype)
+    return out
+
+
+def _host(t) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:          # exact in float32
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def model_params_to_reference(params) -> dict:
+    """The inverse of `model_params_from_reference`: the reference's param
+    pytree of a port `Transformer` as nested dicts of NumPy arrays, the
+    layers stacked on a leading axis (``tree["stage0"]["l0"]["attn"]["wq"]``
+    of shape (n_layers, D, H, hd)).  bfloat16 weights come out as float32
+    (exact); the reference casts them back with ``astype``."""
+    tree: dict = {}
+    for key, leaf in _layer_leaves(params).items():
+        arr = (np.stack([_host(t) for t in leaf]) if isinstance(leaf, list)
+               else _host(leaf))
+        *parents, last = key.split("/")
+        node = tree
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[last] = arr
+    return tree

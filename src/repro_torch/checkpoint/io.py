@@ -1,12 +1,20 @@
-"""Run-state checkpoints: flat .npz snapshots of named arrays plus one JSON
-metadata blob.
+"""Checkpoints: flat .npz snapshots of param trees and of run state.
 
-The port of the run-state half of ``repro.checkpoint.io``, in the same file
-format: named arrays plus the JSON metadata under the reserved ``__meta__``
-key (RNG bit-generator states, cursors, and the originating
-`ExperimentSpec` for provenance), with a sha256 content digest inside it.
-A snapshot either package writes restores in the other.  The param-tree
-``save``/``restore`` of the reference is not ported yet.
+The port of ``repro.checkpoint.io``, in the same file formats; a file
+either package writes restores in the other.  Two payload families:
+
+  * `save`/`restore` — param trees (arrays only), keyed by the reference's
+    tree paths (``stage0/l0/attn/wq``), bfloat16 stored as float32, the
+    step under ``__step__``.  A tree is nested dicts / lists of tensors or
+    arrays, or a model zoo `Transformer`, written as the reference's tree
+    (its layers stacked, ``repro_torch.carry.model_params_to_reference``).
+    `restore` validates against a `like_tree`: a shape mismatch, a missing
+    key or a file key absent from it is a `ValueError`, never a silent
+    drop.
+  * `save_state`/`restore_state` — named arrays plus the JSON metadata
+    under the reserved ``__meta__`` key (RNG bit-generator states,
+    cursors, and the originating `ExperimentSpec` for provenance), with a
+    sha256 content digest inside it.
 
 Writes are atomic (tmp file + ``os.replace``), so a run killed mid-save
 leaves the previous checkpoint intact; `latest_checkpoint` then resumes
@@ -28,8 +36,11 @@ import os
 import zipfile
 
 import numpy as np
+import torch
 
-#: key prefix reserved for format metadata
+from repro_torch.device import resolve_device
+
+#: key prefix reserved for format metadata, exempt from like_tree checks
 RESERVED_PREFIX = "__"
 #: filename prefix the runtime uses for block-boundary snapshots
 CKPT_PREFIX = "ckpt_"
@@ -65,6 +76,138 @@ def _atomic_savez(path: str, flat: dict) -> None:
     # a previous save killed between np.savez and os.replace leaves its
     # tmp file behind forever: sweep those now that this save landed
     _sweep_stale_tmp(directory)
+
+
+def _is_model(tree) -> bool:
+    return isinstance(tree, torch.nn.Module) and hasattr(tree, "layers")
+
+
+def _path_leaves(tree, prefix: tuple = ()):
+    """(key path, leaf) in the reference's flatten order: dict keys sorted,
+    list and tuple entries by index, None an empty subtree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _path_leaves(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _path_leaves(v, prefix + (str(i),))
+    elif tree is not None:
+        yield "/".join(prefix), tree
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        return leaf.cpu().numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":          # npz has no bf16: as f32
+        arr = arr.astype(np.float32)
+    return arr
+
+
+def _flatten(tree) -> dict:
+    if _is_model(tree):
+        from repro_torch.carry import model_params_to_reference
+        tree = model_params_to_reference(tree)
+    return {key: _to_numpy(leaf) for key, leaf in _path_leaves(tree)}
+
+
+def _shapes(like_tree) -> dict:
+    """{key path: shape} of a like tree, without reading its values."""
+    if _is_model(like_tree):
+        from repro_torch.carry import reference_layout
+        return {k: shape for k, (shape, _) in
+                reference_layout(like_tree).items()}
+    return {key: tuple(leaf.shape) if hasattr(leaf, "shape")
+            else np.shape(leaf) for key, leaf in _path_leaves(like_tree)}
+
+
+def save(path: str, tree, step: int | None = None):
+    flat = _flatten(tree)
+    if step is not None:
+        flat["__step__"] = np.asarray(step)
+    _atomic_savez(path, flat)
+
+
+def _like(leaf, arr: np.ndarray, device):
+    """`arr` as `leaf`'s kind: a tensor of its dtype on its device (on
+    `device` where it lives on ``meta``), an array of its dtype, or its
+    Python scalar type."""
+    if isinstance(leaf, torch.Tensor):
+        dev = resolve_device(device) if leaf.is_meta else leaf.device
+        return torch.from_numpy(np.array(arr)).to(device=dev,
+                                                  dtype=leaf.dtype)
+    if isinstance(leaf, (bool, int, float)):
+        return type(leaf)(arr)
+    return np.asarray(arr).astype(np.asarray(leaf).dtype)
+
+
+def _rebuild(tree, restored: dict, device, prefix: tuple = ()):
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], restored, device, prefix + (str(k),))
+                for k in tree}
+    if isinstance(tree, (list, tuple)):
+        out = [_rebuild(v, restored, device, prefix + (str(i),))
+               for i, v in enumerate(tree)]
+        return type(tree)(out)
+    if tree is None:
+        return None
+    return _like(tree, restored["/".join(prefix)], device)
+
+
+def restore(path: str, like_tree, device=None):
+    """Restore into the structure of `like_tree`.
+
+    Every non-reserved key in the file must exist in `like_tree` and every
+    reference leaf must exist in the file with a matching shape — any
+    divergence raises `ValueError` naming the offending key (a checkpoint
+    from a different run shape should fail loudly, not load partially).
+    A `Transformer` like tree gives a new `Transformer` in its config's
+    dtype; other leaves come back in their like leaf's dtype, on its
+    device.  Leaves on the ``meta`` device (``abstract_params``) land on
+    `device`, the GPU unless the caller passes another.
+    """
+    flat_like = _shapes(like_tree)
+    restored = {}
+    with np.load(path) as data:
+        extra = sorted(k for k in data.files
+                       if not k.startswith(RESERVED_PREFIX)
+                       and k not in flat_like)
+        if extra:
+            raise ValueError(
+                f"checkpoint {path!r} holds key(s) {extra} absent from "
+                f"like_tree — refusing to silently drop them")
+        for key, shape in flat_like.items():
+            if key not in data.files:
+                raise ValueError(
+                    f"checkpoint {path!r} is missing key {key!r} "
+                    f"required by like_tree")
+            arr = data[key]
+            if arr.shape != shape:
+                raise ValueError(
+                    f"checkpoint key {key!r}: stored shape {arr.shape} "
+                    f"does not match like_tree shape {shape}")
+            restored[key] = arr
+    if _is_model(like_tree):
+        from repro_torch.carry import model_params_from_reference
+        tree: dict = {}
+        for key, arr in restored.items():
+            *parents, last = key.split("/")
+            node = tree
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[last] = arr
+        dev = (resolve_device(device) if like_tree.embed.is_meta
+               else like_tree.embed.device)
+        return model_params_from_reference(tree, like_tree.cfg, dev)
+    return _rebuild(like_tree, restored, device)
+
+
+def restore_step(path: str) -> int | None:
+    with np.load(path) as data:
+        return int(data["__step__"]) if "__step__" in data.files else None
 
 
 def _state_digest(arrays: dict, meta: dict) -> str:
@@ -124,7 +267,7 @@ def restore_state(path: str, verify: bool = True) -> tuple[dict, dict]:
     if "__meta__" not in raw:
         raise ValueError(
             f"{path!r} is not a run-state checkpoint (no __meta__ "
-            "payload)")
+            "payload; param-tree snapshots restore via `restore`)")
     try:
         meta = json.loads(str(raw["__meta__"][()]))
     except json.JSONDecodeError as exc:

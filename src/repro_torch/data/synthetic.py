@@ -63,3 +63,12 @@ def synthetic_classification(m_train: int = 12000, m_test: int = 2000,
     x_tr = (x_tr - lo) / span
     x_te = np.clip((x_te - lo) / span, 0.0, 1.0)
     return Dataset(x_tr, y_tr, x_te, y_te, n_classes)
+
+
+def synthetic_tokens(vocab: int, batch: int, seq: int, seed: int = 0) -> np.ndarray:
+    """Token batches for LM smoke training (Zipf-ish distribution)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = 1.0 / ranks
+    p /= p.sum()
+    return rng.choice(vocab, size=(batch, seq), p=p).astype(np.int32)

@@ -1,4 +1,4 @@
-"""GQA attention for serving: prefill and one-token decode against a KV
+"""GQA attention: training, prefill and one-token decode against a KV
 cache (the counterparts of ``repro.models.attention``).
 
 Layouts are the reference's: wq (D, H, hd), wk/wv (D, K, hd), wo
@@ -10,6 +10,10 @@ Decode attention is the hand-written ``gqa_decode`` kernel
 (``repro_torch.kernels.ops``); prefill attention is plain PyTorch, an
 online softmax over 512-slot KV chunks, as the reference computes it
 outside any Pallas kernel.  Both compute in float32 and cast back.
+Training attention (`attn_train`) is the same `_flash` under autograd,
+recomputed in the backward (``torch.utils.checkpoint``) as the reference
+recomputes it under ``jax.checkpoint``: the reference's is XLA, not a
+Pallas kernel, so there is no hand-written kernel on the training path.
 
 Unlike the reference, which returns a new cache from each call, these
 functions write the cache in place: at full width a copy of a layer's
@@ -21,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
@@ -79,7 +84,10 @@ def _flash(q, k, v, q_pos, k_pos, window: int, chunk: int = 512):
     for `chunk`-row query tiles in turn; a KV chunk with no valid slot for
     any row of a tile is skipped, which changes no value (for a row that
     has a valid slot somewhere, such a chunk has weight exp(-1e30 - m) = 0;
-    a causal row always has one, its own position).
+    a causal row always has one, its own position).  Under autograd a
+    skipped chunk changes no gradient either: its weights are exactly 0.
+    The tile list read back to the host is a function of the positions
+    alone, so a recompute in the backward skips the same chunks.
     """
     B, S, H, hd = q.shape
     T, K, hd_v = k.shape[1], k.shape[2], v.shape[-1]
@@ -133,6 +141,19 @@ def _attend_single(q, k, v, q_pos: int, k_pos, window: int):
     """One-token attention (decode): q (B, 1, H, hd) against the cache, the
     ``gqa_decode`` kernel on the card -> (B, 1, H, hd_v)."""
     return ops.gqa_decode(q[:, 0], k, v, k_pos, q_pos, window)[:, None]
+
+
+def attn_train(p, x, positions, cfg, window: int = 0, freqs=None):
+    """Full-sequence causal attention.  x: (B, S, D), positions: (S,) int.
+
+    The attention itself is recomputed in the backward instead of saving
+    the per-chunk online-softmax state (the reference's flash backward)."""
+    q = _project_q(p, x, positions[None, :], cfg, freqs)
+    k, v = _project_kv(p, x, positions[None, :], cfg, freqs)
+    win = window if window else cfg.swa_window
+    out = checkpoint(_flash, q, k, v, positions, positions, win,
+                     use_reentrant=False)
+    return _out(p, out)
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype, window: int = 0,

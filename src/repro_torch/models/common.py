@@ -2,9 +2,9 @@
 ``repro.models.common``).
 
 Norms and rope compute in float32 and cast back to the input's dtype, as
-the reference does.  Initializers draw from an explicit
-``torch.Generator``: the same seed gives other numbers than the
-reference's ``jax.random`` (carry weights over with
+the reference does; the cross-entropy is taken in float32.  Initializers
+draw from an explicit ``torch.Generator``: the same seed gives other
+numbers than the reference's ``jax.random`` (carry weights over with
 ``repro_torch.carry.model_params_from_reference`` where they must agree).
 """
 from __future__ import annotations
@@ -46,6 +46,14 @@ def rms_norm(x, weight, eps: float = 1e-5):
     return (out * weight.float()).to(x.dtype)
 
 
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight + bias).to(x.dtype)
+
+
 # ----------------------------------------------------------------- rope
 def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
@@ -69,6 +77,31 @@ def apply_rope(x, positions, theta: float, freqs=None):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None):
+    """(seq, d) float32: sines of the first d/2 frequencies, then cosines."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2.0 * i / d)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)
+
+
+# ----------------------------------------------------------------- losses
+def softmax_cross_entropy(logits, labels, mask=None):
+    """logits: (..., V) any float dtype; labels int (...); mask (...) float.
+
+    Float32 logsumexp minus the label's logit (a gather: the reference
+    picks it with an iota mask only to keep XLA's vocab sharding local);
+    the mean over positions, or the masked mean over max(sum(mask), 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def swiglu(x, w1, w3, w2):

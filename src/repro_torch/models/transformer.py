@@ -1,5 +1,6 @@
-"""Decoder-only model for serving, dense family (the counterpart of
-``repro.models.transformer``'s prefill and decode).
+"""Decoder-only model, dense family: training (`loss_fn`,
+`hidden_states`), prefill and decode (the counterparts of
+``repro.models.transformer``).
 
 The reference stacks each stage's layer params on a leading axis and
 ``lax.scan``s over them; here a `Transformer` module holds a
@@ -7,20 +8,30 @@ The reference stacks each stage's layer params on a leading axis and
 names and layouts are the reference's (``embed`` (V, D), ``lm_head``
 (D, V), per layer ``ln1``, ``ln2``, ``attn.{wq, wk, wv, wo, qn, kn}``,
 ``ffn.{w1, w3, w2}``), so ``repro_torch.carry`` can hand the reference's
-weights over.  A cache is a list with one attention cache per layer.
+weights over and stack them back.  A cache is a list with one attention
+cache per layer.
 
-The port serves the dense stage only: a config whose layers hold MoE, MLA,
+The parameters are built frozen (``requires_grad=False``); the training
+entry points (``repro_torch.launch.train.train``) switch gradients on.
+`prefill` and `decode_step` run under ``torch.no_grad`` either way.
+`loss_fn` is plain autograd: the reference trains through XLA ops, no
+Pallas kernel and no custom gradient.
+
+The port runs the dense stage only: a config whose layers hold MoE, MLA,
 RWKV or Mamba mixers, an encoder (enc-dec) or a VLM patch prefix raises
-``NotImplementedError`` naming the family.
+``NotImplementedError`` naming the family, for training as for serving.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
-                                       rms_norm, rope_freqs, swiglu)
+                                       rms_norm, rope_freqs,
+                                       softmax_cross_entropy, swiglu)
 
 
 def stages(cfg) -> list[tuple[tuple[tuple[str, str], ...], int]]:
@@ -82,10 +93,13 @@ class DenseLayer(nn.Module):
 
     def forward(self, x, cfg, cache, freqs, *, positions=None, pos=None,
                 window: int = 0):
-        """Prefill with `positions` (S,), or decode with int `pos`;
-        returns x (the cache is updated in place)."""
+        """Train (no cache) or prefill with `positions` (S,), or decode
+        with int `pos`; returns x (a cache is updated in place)."""
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        if positions is not None:
+        if cache is None:
+            out = attention.attn_train(self.attn, h, positions, cfg, window,
+                                       freqs)
+        elif positions is not None:
             out, _ = attention.attn_prefill(self.attn, h, positions, cfg,
                                             cache, window, freqs)
         else:
@@ -142,6 +156,29 @@ def init_params(cfg, seed: int = 0, device=None) -> Transformer:
     return Transformer(cfg, embed, final_norm, lm_head, layers)
 
 
+def abstract_params(cfg) -> Transformer:
+    """The model's parameters on the ``meta`` device: shapes and dtypes,
+    no storage (the counterpart of the reference's ``eval_shape`` tree)."""
+    check_supported(cfg)
+    dtype = dtype_of(cfg)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    V, D, Fd = cfg.vocab_padded, cfg.d_model, cfg.d_ff
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    layers = []
+    for _ in range(cfg.n_layers):
+        attn = {"wq": empty(D, H, hd), "wk": empty(D, K, hd),
+                "wv": empty(D, K, hd), "wo": empty(H, hd, D)}
+        if cfg.qk_norm:
+            attn["qn"], attn["kn"] = empty(hd), empty(hd)
+        ffn = {"w1": empty(D, Fd), "w3": empty(D, Fd), "w2": empty(Fd, D)}
+        layers.append(DenseLayer(empty(D), empty(D), attn, ffn))
+    lm_head = None if cfg.tie_embeddings else empty(D, V)
+    return Transformer(cfg, empty(V, D), empty(D), lm_head, layers)
+
+
 def init_cache(cfg, batch: int, max_seq: int, window: int = 0,
                device=None) -> list[dict]:
     check_supported(cfg)
@@ -150,7 +187,9 @@ def init_cache(cfg, batch: int, max_seq: int, window: int = 0,
 
 
 def _embed_tokens(cfg, params, tokens):
-    return params.embed[tokens.long()]
+    """Rows of the embedding table.  ``F.embedding``'s backward sums the
+    rows' gradients by sorted index on the card, in a fixed order."""
+    return F.embedding(tokens.long().to(params.embed.device), params.embed)
 
 
 def _inputs_embeds(cfg, params, batch):
@@ -167,6 +206,48 @@ def _logits(cfg, params, x):
                              torch.tensor(-1e9, dtype=logits.dtype,
                                           device=logits.device))
     return logits
+
+
+def _run_layers(cfg, params, x, window: int, remat: bool):
+    """Every layer over the whole sequence, no cache (the "train" mode);
+    with `remat` each layer is recomputed in the backward."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for layer in params.layers:
+        if remat:
+            x = checkpoint(layer, x, cfg, None, params.rope_freqs,
+                           positions=positions, window=window,
+                           use_reentrant=False)
+        else:
+            x = layer(x, cfg, None, params.rope_freqs, positions=positions,
+                      window=window)
+    return x
+
+
+def loss_fn(cfg, params, batch, window: int = 0, remat: bool = True,
+            chunked: bool = True):
+    """batch: tokens (B, S), labels (B, S), on any device.
+
+    Labels are next-token targets aligned with the token positions; label
+    -100 masks a position out.  The mean cross-entropy over the unmasked
+    positions (float32); a dense model has no auxiliary loss.  `chunked`
+    is the reference's switch for the recurrent families, unused here."""
+    check_supported(cfg)
+    x = _inputs_embeds(cfg, params, batch)
+    x = _run_layers(cfg, params, x, window, remat)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = _logits(cfg, params, x)
+    labels = batch["labels"].to(x.device)
+    mask = (labels >= 0).float()
+    return softmax_cross_entropy(logits, torch.clamp(labels, min=0), mask)
+
+
+def hidden_states(cfg, params, batch, window: int = 0, chunked: bool = True):
+    """Final-norm hidden states (B, S, D): the feature extractor of the
+    coded linear-probe head (``repro_torch.core.coded_probe``)."""
+    check_supported(cfg)
+    x = _inputs_embeds(cfg, params, batch)
+    x = _run_layers(cfg, params, x, window, remat=False)
+    return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
 @torch.no_grad()
