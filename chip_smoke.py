@@ -186,7 +186,28 @@ Phases, each printed as one JSON object per line:
              a 4096-token prompt (a rolling cache);
  25. serve_cpu: the qwen3-4b smoke variant served on the card and on the
              CPU (plain versions): identical tokens, logits within tolerance;
- 26. train:  the model zoo's training path, after the serving model is
+ 26. families: the model zoo's other families served through
+             repro_torch.launch.serve.serve at their published widths in
+             bf16 from seeded random weights, 4 requests of 1024 prompt
+             positions (internvl2: 256 patches + 768 tokens; whisper: 224
+             tokens over 1500 encoder frames; jamba: 1000, so that prefill
+             takes the sequential Mamba scan, and the chunked scan's
+             overflow at 1024 read as a measurement) and 32 greedy tokens:
+             deepseek-v2-lite-16b (27 layers, MLA + MoE), mixtral-8x7b
+             (8 of 32 layers), jamba-1.5-large-398b (one attention + dense
+             and one Mamba + MoE layer), rwkv6-1.6b, internvl2-1b,
+             whisper-base; each line: the depth cut (`reduced`), prefill
+             ms, warm decode ms per step against its byte bound, tokens/s,
+             peak bytes, gqa_decode launches (the attention and MLA layers
+             x 31, none for rwkv6) asserted, tokens in range, finite
+             logits.  card_vs_cpu: each family's smoke variant on the card
+             and on the CPU with the same weights, prefill logits, tokens
+             and the last decode step's logits.  decode_vs_prefill:
+             internvl2, whisper and rwkv6 at full width, 4 layers, float32:
+             the last decode step against a prefill over prompt + generated
+             tokens (rwkv6: the chunked prefill and the sequential decode
+             against one sequential prefill);
+ 27. train:  the model zoo's training path, after the serving model is
              freed.  full: qwen3-4b at full width (36 layers, d_model 2560,
              bf16) from seeded weights, Adam, the train CLI's
              --full-config defaults (20 steps, batch 4, seq 64) through
@@ -212,7 +233,7 @@ Phases, each printed as one JSON object per line:
              training accuracy > 0.5, theta against a CPU run of the FL
              half on the same features and (Omega, delta), the extraction
              and setup seconds;
- 27. kernel: each kernel against its plain PyTorch version on the card, at
+ 28. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
              tile multiple; times with CUDA events.  linreg_grad_masked at
@@ -252,7 +273,7 @@ Phases, each printed as one JSON object per line:
              by events, on the device (device_ms, library_device_ms) and on
              the host (host_ms: the wrapper's enqueue), beside SDPA with its
              mask made once outside the timed calls;
- 28. the kernels table, then the final line
+ 29. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -376,6 +397,38 @@ SMOKE_LOGIT_ATOL = 1e-4
 # gqa_decode in bfloat16: kernel and plain version round the same float32
 # result to bf16, at most one ulp (2^-8 relative) apart
 BF16_REL_TOL = 2 ** -7
+
+# the families phase: the model zoo's other families served at their
+# published widths in bf16 (src/repro/configs/<arch>.py), 4 requests of
+# 1024 prompt positions (internvl2: 256 patches + 768 tokens; whisper 224
+# tokens over its 1500 encoder frames; jamba 1000: FAMILY_PROMPT_WHY) and
+# 32 greedy tokens; depth cut only where one card cannot hold the model:
+# (arch, config changes, why)
+FAMILY_SERVE = dict(batch=4, prompt_len=1024, gen_len=32, seed=0)
+FAMILIES = (
+    ("deepseek-v2-lite-16b", {}, None),
+    ("mixtral-8x7b", {"n_layers": 8},
+     "8 of 32 layers: the whole model is 93 GB of bf16 weights"),
+    ("jamba-1.5-large-398b", {"n_layers": 2, "attn_every_n": 2},
+     "one attention + dense and one Mamba + MoE layer (attn_every_n 2, "
+     "n_layers 2) at full width: one 8-layer superblock is ~44e9 params "
+     "(88 GB)"),
+    ("rwkv6-1.6b", {}, None),
+    ("internvl2-1b", {}, None),
+    ("whisper-base", {}, None),
+)
+FAMILY_PROMPT = {"whisper-base": 224, "jamba-1.5-large-398b": 1000}
+# why a family's prompt is not 1024
+FAMILY_PROMPT_WHY = {
+    "whisper-base": "inside whisper's 448-token decoder context",
+    "jamba-1.5-large-398b": "not a multiple of 128, so prefill takes the "
+    "sequential Mamba scan by the reference's rule: at 1024 it takes the "
+    "chunked scan, whose exp(-cumulative log decay) overflows float32 at "
+    "this width (ROADMAP F4); the line's chunked_prefill_1024_finite "
+    "reads that prefill"}
+# decode against prefill on the card: float32, full width, 4 layers
+FAMILY_CHECK = ("internvl2-1b", "whisper-base", "rwkv6-1.6b")
+FAMILY_CHECK_LAYERS = 4
 
 # the training phase: qwen3-4b at full width, bf16, Adam, at the train
 # CLI's defaults; the card/CPU check at its widths, 2 layers, float32
@@ -3072,6 +3125,278 @@ def serve_cpu(torch, dev, state) -> None:
               f"differ by {err}")
 
 
+def _family_cfg(arch: str, changes: dict):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    changes = dict(changes)
+    if "attn_every_n" in changes:
+        changes["ssm"] = dataclasses.replace(
+            cfg.ssm, attn_every_n=changes.pop("attn_every_n"))
+    return dataclasses.replace(cfg, **changes)
+
+
+def _decode_attention_layers(cfg) -> int:
+    """Layers whose decode attention is gqa_decode: the attention and MLA
+    mixers, the enc-dec decoder's self-attention."""
+    if cfg.is_encdec:
+        return cfg.n_layers
+    from repro_torch.models import transformer
+    return sum(m in ("attn", "mla") for m, _ in transformer.layer_specs(cfg))
+
+
+def _family_step_bytes(cfg, params, B: int, T: int) -> dict:
+    """What a decode step must move at least: the weights it reads (every
+    weight but the embedding table, of which B rows; a tied table is read
+    whole as the head; every expert, as capacity dispatch runs each over
+    its buffer; the enc-dec decoder's weights only) and the cache: K and V
+    of every attention layer (T slots); MLA's latent cache, and the
+    decompressed K and V it writes and the kernel reads; the enc-dec
+    cross K/V; the recurrent states read and written."""
+    from repro_torch.models import transformer
+
+    def nbytes(ps):
+        return sum(p.numel() * p.element_size() for p in ps)
+
+    elem = params.embed.element_size()
+    D = cfg.d_model
+    rows = B * D * elem
+    if cfg.is_encdec:
+        weights = (nbytes(params.dec.parameters())
+                   + nbytes([params.dec_norm, params.lm_head]) + rows)
+        kv = 2 * B * cfg.n_heads * cfg.head_dim * elem
+        cache = cfg.n_layers * kv * (T + cfg.encoder_seq)
+        return {"weights": weights, "cache": cache}
+    weights = nbytes(params.parameters()) - params.embed.numel() * elem + rows
+    if cfg.tie_embeddings:
+        weights += params.embed.numel() * elem
+    cache = 0
+    for mixer, _ in transformer.layer_specs(cfg):
+        if mixer == "attn":
+            cache += 2 * B * T * cfg.n_kv_heads * cfg.head_dim * elem
+        elif mixer == "mla":
+            m = cfg.mla
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            cache += B * T * (m.kv_lora_rank + m.qk_rope_head_dim) * elem
+            cache += 2 * B * T * cfg.n_heads * (qk + m.v_head_dim) * elem
+        elif mixer == "rwkv":
+            hs = cfg.rwkv.head_size
+            cache += 2 * B * (D // hs) * hs * hs * 4 + 4 * B * D * elem
+        else:
+            din = cfg.ssm.expand * D
+            cache += 2 * (B * din * cfg.ssm.d_state * 4
+                          + B * (cfg.ssm.d_conv - 1) * din * elem)
+    return {"weights": weights, "cache": cache}
+
+
+def _family_gqa_shape(cfg, B: int, T: int):
+    """gqa_decode's (B, H, K, hd, hd_v, T, window) at a family's decode."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return (B, cfg.n_heads, cfg.n_heads,
+                m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim, T,
+                cfg.swa_window)
+    K = cfg.n_heads if cfg.is_encdec else cfg.n_kv_heads
+    return (B, cfg.n_heads, K, cfg.head_dim, cfg.head_dim, T,
+            cfg.swa_window)
+
+
+def _family_serve(torch, dev, state, arch, changes, why) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model_zoo import build
+
+    cfg = _family_cfg(arch, changes)
+    kw = dict(FAMILY_SERVE, prompt_len=FAMILY_PROMPT.get(
+        arch, FAMILY_SERVE["prompt_len"]))
+    B, S, gen = kw["batch"], kw["prompt_len"], kw["gen_len"]
+    T = S + gen
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build(cfg).init_params(seed=kw["seed"], device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    step = _family_step_bytes(cfg, params, B, T)
+    ops.reset_launch_counts()
+    res = serve(cfg, params=params, device=dev, verbose=False, **kw)
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = _decode_attention_layers(cfg) * (gen - 1)
+    quirk = {}
+    if cfg.ssm is not None:
+        # the reference's chunked Mamba scan at 1024 prompt positions, a
+        # measurement of fault F4, not a check
+        from repro_torch.launch.train import make_batch
+        prompt = make_batch(cfg, B, 1024, kw["seed"])["tokens"].to(dev)
+        logits, _ = build(cfg).prefill(params, {"tokens": prompt})
+        quirk["chunked_prefill_1024_finite"] = bool(
+            torch.isfinite(logits).all())
+        del logits, prompt
+    tokens_ok = (tuple(res.tokens.shape) == (B, gen)
+                 and int(res.tokens.min()) >= 0
+                 and int(res.tokens.max()) < cfg.vocab)
+    logits_ok = bool(torch.isfinite(res.logits).all())
+    bound_ms = (step["weights"] + step["cache"]) / PEAK_BYTES * 1e3
+    emit({"phase": "families", "arch": cfg.name, "layers": cfg.n_layers,
+          "encoder_layers": cfg.n_encoder_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "reduced": why,
+          "prompt_why": FAMILY_PROMPT_WHY.get(arch), **quirk,
+          "params": n_params,
+          "param_bytes": param_bytes, **kw, "max_seq": T,
+          "prefix_patches": cfg.n_prefix_patches,
+          "encoder_seq": cfg.encoder_seq, "init_s": init_s,
+          "prefill_ms": res.prefill_ms,
+          "first_decode_ms": res.first_decode_ms,
+          "decode_ms_per_step": res.decode_ms_per_step,
+          "tokens_per_s": res.tokens_per_s,
+          "step_weight_bytes": step["weights"],
+          "step_cache_bytes": step["cache"], "step_bound_ms": bound_ms,
+          "step_over_bound": res.decode_ms_per_step / bound_ms,
+          "peak_bytes": peak, "launches": launches,
+          "expected_gqa_decode": want, "tokens_ok": tokens_ok,
+          "logits_finite": logits_ok,
+          "first_tokens": res.tokens[0, :8].tolist()})
+    check(launches["gqa_decode"] == want, f"families {arch}: gqa_decode "
+          f"launched {launches['gqa_decode']} times, expected {want}")
+    check(sum(launches.values()) == launches["gqa_decode"],
+          f"families {arch}: an FL kernel launched: {launches}")
+    check(tokens_ok and logits_ok, f"families {arch}: tokens out of range "
+          "or logits not finite")
+    if want:
+        state.setdefault("families", {})[arch] = {
+            "gqa_shape": _family_gqa_shape(cfg, B, T),
+            "launches": launches["gqa_decode"],
+            "decode_ms_per_step": res.decode_ms_per_step,
+            "attention_layers": _decode_attention_layers(cfg)}
+    del params, res
+    _release(torch)
+
+
+def _family_cpu(torch, dev, state, arch) -> None:
+    """The smoke variant on the card (kernel path) and on the CPU (plain
+    path), the same weights: prefill logits, the served tokens and the
+    last decode step's logits."""
+    import copy
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.model_zoo import build
+
+    cfg = smoke_variant(get_config(arch))
+    model = build(cfg)
+    params = model.init_params(seed=SMOKE_SERVE["seed"], device="cpu")
+    gpu_params = copy.deepcopy(params).to(dev)
+    b = make_batch(cfg, SMOKE_SERVE["batch"], SMOKE_SERVE["prompt_len"],
+                   SMOKE_SERVE["seed"])
+    b.pop("labels")
+    ops.reset_launch_counts()
+    pre_gpu, _ = model.prefill(gpu_params, {k: v.to(dev)
+                                            for k, v in b.items()})
+    gpu = serve(cfg, device=dev, params=gpu_params, verbose=False,
+                **SMOKE_SERVE)
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    pre_cpu, _ = model.prefill(params, b)
+    cpu = serve(cfg, device="cpu", params=params, verbose=False,
+                **SMOKE_SERVE)
+    check(ops.LAUNCHES == launches, f"families {arch} smoke: the CPU run "
+          "launched")
+    want = _decode_attention_layers(cfg) * (SMOKE_SERVE["gen_len"] - 1)
+    same = bool(torch.equal(gpu.tokens, cpu.tokens))
+    err = float((gpu.logits - cpu.logits).abs().max())
+    pre_err = float((pre_gpu.float().cpu() - pre_cpu.float()).abs().max())
+    emit({"phase": "families", "part": "card_vs_cpu", "arch": cfg.name,
+          "layers": cfg.n_layers, **SMOKE_SERVE, "launches": launches,
+          "expected_gqa_decode": want, "tokens_identical": same,
+          "prefill_logits_max_abs_err": pre_err,
+          "logits_max_abs_err": err, "tol": SMOKE_LOGIT_ATOL,
+          "tol_reason": "float32 sums of <= 512 terms in another order "
+          "through 2 layers"})
+    check(launches["gqa_decode"] == want, f"families {arch} smoke: "
+          f"gqa_decode launched {launches['gqa_decode']} times, expected "
+          f"{want}")
+    check(same, f"families {arch} smoke: card and CPU tokens differ")
+    check(max(err, pre_err) <= SMOKE_LOGIT_ATOL, f"families {arch} smoke: "
+          f"logits differ by {max(err, pre_err)}")
+
+
+def _family_check(torch, dev, state, arch) -> None:
+    """Full width at FAMILY_CHECK_LAYERS layers, float32: the kernel decode
+    path against a prefill over prompt + generated tokens (for RWKV, the
+    chunked prefill and the sequential decode against one sequential
+    prefill: the prompt is a multiple of 64, prompt + generated tokens
+    are not)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.model_zoo import build
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(
+        base, n_layers=FAMILY_CHECK_LAYERS, dtype="float32",
+        n_encoder_layers=(FAMILY_CHECK_LAYERS if base.is_encdec else 0))
+    model = build(cfg)
+    params = model.init_params(seed=1, device=dev)
+    B, S = FAMILY_SERVE["batch"], FAMILY_PROMPT.get(
+        arch, FAMILY_SERVE["prompt_len"])
+    seed = FAMILY_SERVE["seed"]
+    ops.reset_launch_counts()
+    res = serve(cfg, batch=B, prompt_len=S, gen_len=CHECK_GEN, seed=seed,
+                device=dev, params=params, verbose=False)
+    launches = dict(ops.LAUNCHES)
+    add_launches(state, launches)
+    want_launches = _decode_attention_layers(cfg) * (CHECK_GEN - 1)
+    check(launches["gqa_decode"] == want_launches,
+          f"families check {arch}: gqa_decode launched "
+          f"{launches['gqa_decode']} times, expected {want_launches}")
+    b = make_batch(cfg, B, S, seed)
+    b.pop("labels")
+    b["tokens"] = torch.cat([b["tokens"], res.tokens[:, :-1]], dim=1)
+    logits, _ = model.prefill(params, {k: v.to(dev) for k, v in b.items()})
+    check(ops.LAUNCHES["gqa_decode"] == want_launches,
+          f"families check {arch}: the plain prefill launched gqa_decode")
+    want = logits.float().cpu()
+    err = float((res.logits - want).abs().max())
+    excess = float(((res.logits - want).abs()
+                    - (CHECK_ATOL + CHECK_RTOL * want.abs())).max())
+    emit({"phase": "families", "part": "decode_vs_prefill",
+          "arch": cfg.name, "layers": FAMILY_CHECK_LAYERS,
+          "encoder_layers": cfg.n_encoder_layers, "dtype": "float32",
+          "batch": B, "prompt_len": S, "gen_len": CHECK_GEN,
+          "prefill_positions": b["tokens"].shape[1] + cfg.n_prefix_patches,
+          "launches": launches, "logits_max_abs_err": err,
+          "max_abs_logit": float(want.abs().max()), "atol": CHECK_ATOL,
+          "rtol": CHECK_RTOL, "tol_reason": "float32 sums in other orders "
+          "through 4 layers and the head (for RWKV also the chunked "
+          "against the sequential form); the repository's own "
+          "decode-vs-prefill tolerance (tests/test_models_smoke.py:87)",
+          "argmax_identical": bool(torch.equal(res.logits.argmax(-1),
+                                               want.argmax(-1)))})
+    check(math.isfinite(err) and excess <= 0.0,
+          f"families check {arch}: decode logits differ from the "
+          f"prefill's by {err}")
+    del params, model, logits
+    _release(torch)
+
+
+def families_path(torch, dev, state) -> None:
+    """The model zoo's other families: each served at its published widths
+    in bf16; the smoke variants card against CPU; decode against prefill
+    in float32 for internvl2, whisper and rwkv6."""
+    for arch, changes, why in FAMILIES:
+        _family_serve(torch, dev, state, arch, changes, why)
+    for arch, _, _ in FAMILIES:
+        _family_cpu(torch, dev, state, arch)
+    for arch in FAMILY_CHECK:
+        _family_check(torch, dev, state, arch)
+
+
 def _adam_reference_order(params, grads, state, lr, b1=0.9, b2=0.999,
                           eps=1e-8):
     """Adam's update in the reference's element-wise order
@@ -3639,6 +3964,41 @@ def gqa_checks(torch, dev, state) -> dict:
            "status": "ported, checked"}
     n_layers = cfg.n_layers
     decode_ms = state["serve"]["decode_ms_per_step"]
+    families = []
+    for arch, fam in state.get("families", {}).items():
+        fB, fH, fK, fhd, fhdv, fT, fwin = fam["gqa_shape"]
+        args = case(fB, fH, fK, fhd, fhdv, fT, fT - 1, window=fwin,
+                    dtype=bf16)
+        got, again = kern(*args), kern(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"gqa_decode ({arch}): two launches "
+              "on the same inputs gave other bits")
+        err, tol = max_err(torch, got.float(), plain(*args).float(),
+                           BF16_REL_TOL)
+        mask = lib_mask(*args)
+        f_lib_err, _ = max_err(torch, lib(*args[:3], mask).float(),
+                               plain(*args).float(), BF16_REL_TOL)
+        f_valid = int(((args[3] >= 0) & (args[3] <= args[4])).sum())
+        f_bytes = elem * (args[0].numel() + fB * f_valid * fK * fhd
+                          + args[2].numel() + fB * fH * fhdv) + 4 * fT
+        f_flops = 2 * fB * fH * f_valid * (fhd + fhdv)
+        f_bound, f_by = bound(f_bytes, f_flops)
+        f_ms = time_ms(torch, lambda: kern(*args), reps)
+        families.append({
+            "arch": arch, "shape": [list(a.shape) for a in args[:3]],
+            "B_H_K_hd_hdv_T_window": list(fam["gqa_shape"]),
+            "group": fH // fK, "launches": fam["launches"],
+            "max_abs_err": err, "tol": tol, "library_max_abs_err": f_lib_err,
+            "rerun_identical": True, "ms": f_ms,
+            "device_ms": device_ms(torch, lambda: kern(*args), 20),
+            "plain_ms": time_ms(torch, lambda: plain(*args), reps),
+            "library_ms": time_ms(torch, lambda: lib(*args[:3], mask), reps),
+            "library_device_ms": device_ms(
+                torch, lambda: lib(*args[:3], mask), 20),
+            "bound_ms": f_bound, "bound_by": f_by, "bytes": f_bytes,
+            "flops": f_flops,
+            "decode_share_from_events": fam["attention_layers"] * f_ms
+            / fam["decode_ms_per_step"]})
     emit({"phase": "kernel", **row, "kernel_ms": kernel_ms,
           "device_ms": kernel_device_ms,
           "library_device_ms": library_device_ms,
@@ -3652,6 +4012,7 @@ def gqa_checks(torch, dev, state) -> dict:
               state["serve"]["gqa_profiled_ms_per_step"] / decode_ms,
           "achieved_bytes_per_s": nbytes / (kernel_ms * 1e-3),
           "bound_share": bound_ms / kernel_ms, "checks": checks,
+          "families": families,
           "library": "torch.nn.functional.scaled_dot_product_attention("
           "enable_gqa=True) with the same mask, made once outside the timed "
           "calls", "library_max_abs_err":
@@ -4305,7 +4666,7 @@ def main() -> int:
                   quickstart_path, channel_path, adaptive_path, faults_path,
                   secure_agg_path, sweep_path, telemetry_path, service_path,
                   hier_path, hier_scale_path, bench_path, serve_path,
-                  serve_check, serve_cpu, train_path):
+                  serve_check, serve_cpu, families_path, train_path):
         t0 = time.perf_counter()
         phase(torch, dev, state)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})

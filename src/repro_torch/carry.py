@@ -27,7 +27,7 @@ them into the port's tensors:
     pytree of ``repro.models.model_zoo.build(cfg).init_params``), for
     ``repro_torch.launch.serve.serve(..., params=...)`` and
     ``repro_torch.launch.train.train(..., params=...)``;
-  * `model_params_to_reference`, its inverse: a port `Transformer` as the
+  * `model_params_to_reference`, its inverse: a port model as the
     reference's pytree (layers stacked again), NumPy arrays, and
     `reference_layout`, that tree's key paths and shapes without reading
     a weight (``repro_torch.checkpoint.io`` writes and checks the
@@ -103,59 +103,112 @@ def _weight(arr, dtype, device) -> torch.Tensor:
 
 
 def model_params_from_reference(params_np, cfg, device=None):
-    """The reference's param pytree (NumPy arrays) as a port `Transformer`
-    on `device`, in the config's dtype.
+    """The reference's param pytree (NumPy arrays) as a port model on
+    `device`: a `Transformer`, or an `EncDec` where ``cfg.is_encdec``.
 
-    The reference stacks the layers of its one dense stage on a leading
-    axis (``params["stage0"]["l0"][...]`` of shape (n_layers, ...)); this
-    unstacks them into the port's layers.  Layouts are kept: wq (D, H, hd),
-    wk/wv (D, K, hd), wo (H, hd, D), w1/w3 (D, F), w2 (F, D), embed (V, D),
-    lm_head (D, V)."""
-    from repro_torch.models import transformer
+    The reference stacks the layers of each stage's pattern position on a
+    leading axis (``params["stage0"]["l0"]["attn"]["wq"]`` of shape
+    (count, D, H, hd)); this unstacks them into the port's layers, in the
+    order they run (stage by stage; within a stage, repeat by repeat, the
+    pattern's layers in turn: jamba's superblocks ``l0..l7``).  The
+    enc-dec tree's ``enc`` and ``dec`` stacks become its encoder and
+    decoder layers.  Layouts are kept, and each leaf takes its dtype in
+    the model (``transformer.leaf_dtype``: the config's, float32 for the
+    MoE router and the recurrent mixers' float32 leaves), whatever dtype
+    the array has (a checkpoint holds bf16 weights as float32)."""
+    from repro_torch.models import encdec, transformer
     from repro_torch.models.common import dtype_of
 
-    transformer.check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype_of(cfg)
-    stage = params_np["stage0"]["l0"]
 
     def w(arr):
         return _weight(arr, dtype, dev)
 
+    def group(node, key, i):
+        return {name: _weight(a[i], transformer.leaf_dtype(cfg, key, name),
+                              dev) for name, a in node[key].items()}
+
+    if cfg.is_encdec:
+        enc, dec = params_np["enc"], params_np["dec"]
+        enc_layers = [encdec.EncLayer(w(enc["ln1"][i]), w(enc["ln2"][i]),
+                                      group(enc, "attn", i),
+                                      group(enc, "ffn", i))
+                      for i in range(cfg.n_encoder_layers)]
+        dec_layers = [encdec.DecLayer(w(dec["ln1"][i]), w(dec["ln_x"][i]),
+                                      w(dec["ln2"][i]), group(dec, "self", i),
+                                      group(dec, "cross", i),
+                                      group(dec, "ffn", i))
+                      for i in range(cfg.n_layers)]
+        return encdec.EncDec(cfg, w(params_np["embed"]),
+                             w(params_np["enc_in_proj"]),
+                             w(params_np["enc_norm"]),
+                             w(params_np["dec_norm"]),
+                             w(params_np["lm_head"]), enc_layers, dec_layers)
     layers = []
-    for i in range(cfg.n_layers):
-        attn = {name: w(a[i]) for name, a in stage["attn"].items()}
-        ffn = {name: w(stage["ffn"][name][i]) for name in ("w1", "w3", "w2")}
-        layers.append(transformer.DenseLayer(w(stage["ln1"][i]),
-                                             w(stage["ln2"][i]), attn, ffn))
+    for si, (pattern, count) in enumerate(transformer.stages(cfg)):
+        stage = params_np[f"stage{si}"]
+        for c in range(count):
+            for i, spec in enumerate(pattern):
+                node = stage[f"l{i}"]
+                layers.append(transformer.Layer(
+                    spec, w(node["ln1"][c]), w(node["ln2"][c]),
+                    group(node, spec[0], c),
+                    group(node, transformer.FFN_KEYS[spec[1]], c)))
     lm_head = None if cfg.tie_embeddings else w(params_np["lm_head"])
+    patch_proj = (w(params_np["patch_proj"]) if cfg.n_prefix_patches
+                  else None)
     return transformer.Transformer(cfg, w(params_np["embed"]),
                                    w(params_np["final_norm"]), lm_head,
-                                   layers)
+                                   layers, patch_proj)
+
+
+def _stacked(prefix: str, layers) -> dict:
+    """{key path: the tensors it stacks, one a layer} of layers that share
+    one place in the reference's tree: each weight group's leaves in key
+    order, then the norms."""
+    first = layers[0]
+    out = {}
+    for key, group in first.groups.items():
+        for name in sorted(group):
+            out[f"{prefix}{key}/{name}"] = [layer.groups[key][name]
+                                            for layer in layers]
+    for norm in first.norms:
+        out[prefix + norm] = [getattr(layer, norm) for layer in layers]
+    return out
 
 
 def _layer_leaves(params) -> dict:
     """{reference key path: the tensors it stacks (one a layer) or the one
     tensor it holds}, in the reference's tree order."""
-    layers = params.layers
-    first = layers[0]
+    from repro_torch.models import transformer
+
+    cfg = params.cfg
+    if cfg.is_encdec:
+        out = {name: getattr(params, name) for name in (
+            "embed", "enc_in_proj", "enc_norm", "dec_norm", "lm_head")}
+        out.update(_stacked("enc/", list(params.enc)))
+        out.update(_stacked("dec/", list(params.dec)))
+        return out
     out = {"embed": params.embed, "final_norm": params.final_norm}
     if params.lm_head is not None:
         out["lm_head"] = params.lm_head
-    stage = "stage0/l0/"
-    for name in sorted(first.attn):
-        out[stage + "attn/" + name] = [layer.attn[name] for layer in layers]
-    for name in sorted(first.ffn):
-        out[stage + "ffn/" + name] = [layer.ffn[name] for layer in layers]
-    out[stage + "ln1"] = [layer.ln1 for layer in layers]
-    out[stage + "ln2"] = [layer.ln2 for layer in layers]
+    if params.patch_proj is not None:
+        out["patch_proj"] = params.patch_proj
+    first = 0
+    for si, (pattern, count) in enumerate(transformer.stages(cfg)):
+        n = len(pattern)
+        for i in range(n):
+            out.update(_stacked(f"stage{si}/l{i}/", [
+                params.layers[first + c * n + i] for c in range(count)]))
+        first += n * count
     return out
 
 
 def reference_layout(params) -> dict:
     """{key path of the reference's tree: (shape, torch dtype)} of a port
-    `Transformer` (also one on the ``meta`` device); stacked layers have
-    the layer axis first."""
+    model (also one on the ``meta`` device); stacked layers have the layer
+    axis first."""
     out = {}
     for key, leaf in _layer_leaves(params).items():
         if isinstance(leaf, list):
@@ -174,10 +227,11 @@ def _host(t) -> np.ndarray:
 
 def model_params_to_reference(params) -> dict:
     """The inverse of `model_params_from_reference`: the reference's param
-    pytree of a port `Transformer` as nested dicts of NumPy arrays, the
-    layers stacked on a leading axis (``tree["stage0"]["l0"]["attn"]["wq"]``
-    of shape (n_layers, D, H, hd)).  bfloat16 weights come out as float32
-    (exact); the reference casts them back with ``astype``."""
+    pytree of a port model as nested dicts of NumPy arrays, the layers
+    stacked on a leading axis (``tree["stage0"]["l0"]["attn"]["wq"]`` of
+    shape (count, D, H, hd); ``tree["dec"]["self"]["wq"]`` for enc-dec).
+    bfloat16 weights come out as float32 (exact); the reference casts them
+    back with ``astype``; float32 leaves of a bf16 model stay float32."""
     tree: dict = {}
     for key, leaf in _layer_leaves(params).items():
         arr = (np.stack([_host(t) for t in leaf]) if isinstance(leaf, list)

@@ -2,18 +2,29 @@
 ``repro.launch.serve``).
 
 Prefills a batch of prompts (the packed-LM pipeline's tokens, as the
-reference's ``make_batch`` gives them), then steps the decode loop,
-greedy-sampling one token per request per step against the KV cache.  On
-the card each decode step's attention is the ``gqa_decode`` kernel.
+reference's ``make_batch`` gives them, after its VLM patch prefix or
+beside its enc-dec frames), then steps the decode loop, greedy-sampling
+one token per request per step against the cache.  Every family of the
+model zoo serves; on the card each decode step's causal attention (GQA,
+MLA, the enc-dec decoder's self-attention) is the ``gqa_decode`` kernel.
 
     python -m repro_torch.launch.serve --arch qwen3-4b            # GPU, full width
-    python -m repro_torch.launch.serve --arch qwen3-4b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch mixtral-8x7b --smoke --device cpu
 
-With ``window == 0`` the cache holds prompt_len + gen_len positions, the
-slots past the prompt at position -1 (the reference grows its prefill
-cache to that size).  With ``window > 0`` the cache is not grown: it has
-min(prompt_len, window) slots, so with prompt_len < window the effective
-window is prompt_len, as in the reference.
+With ``window == 0`` the attention caches hold prompt_len + gen_len
+positions, the slots past the prompt at position -1 (the reference grows
+its prefill cache to that size).  With ``window > 0`` they are not grown:
+they have min(prompt_len, window) slots, so with prompt_len < window the
+effective window is prompt_len, as in the reference.  The recurrent states
+(RWKV, Mamba) have no length.  The prompt length counts a VLM's patch
+positions (internvl2: 256 of them), so decoding starts at position
+prompt_len there too.
+
+Whole at full width, mixtral-8x7b (93 GB of bf16 weights) and
+jamba-1.5-large-398b (~800 GB) do not fit on one 80 GB card; from Python,
+serve a config with fewer layers (``dataclasses.replace(cfg, n_layers=8)``
+for mixtral; for jamba also a shorter superblock,
+``ssm=dataclasses.replace(cfg.ssm, attn_every_n=2)`` with n_layers=2).
 """
 from __future__ import annotations
 
@@ -46,9 +57,10 @@ def serve(cfg, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
           verbose: bool = True) -> ServeResult:
     """Serve `batch` prompts of `prompt_len` tokens for `gen_len` greedy
     tokens each.  `device` None means CUDA (raises where there is none);
-    `params` takes weights made elsewhere (a `Transformer`, for instance
-    from ``repro_torch.carry.model_params_from_reference``; it is moved to
-    `device` in place), else random weights are drawn from `seed`."""
+    `params` takes weights made elsewhere (a `Transformer` or an `EncDec`,
+    for instance from ``repro_torch.carry.model_params_from_reference``; it
+    is moved to `device` in place), else random weights are drawn from
+    `seed`."""
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")
     dev = resolve_device(device)
@@ -56,8 +68,10 @@ def serve(cfg, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
     params = (model.init_params(seed, dev) if params is None
               else params.to(dev))
     b = make_batch(cfg, batch, prompt_len, seed)
-    prompt = {"tokens": b["tokens"].to(dev)}
+    prompt = {key: b[key].to(dev) for key in ("tokens", "patch_embeds",
+                                               "frames") if key in b}
     max_seq = prompt_len + gen_len
+    start = b["tokens"].shape[1] + (cfg.n_prefix_patches or 0)
 
     synchronize(dev)
     t0 = time.perf_counter()
@@ -71,8 +85,8 @@ def serve(cfg, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
     first_s = 0.0
     t0 = time.perf_counter()
     for i in range(gen_len - 1):
-        logits, cache = model.decode_step(params, cache, tokens,
-                                          prompt_len + i, window=window)
+        logits, cache = model.decode_step(params, cache, tokens, start + i,
+                                          window=window)
         tokens = logits.argmax(dim=-1)[:, None].to(torch.int32)
         out.append(tokens)
         if i == 0:

@@ -17,9 +17,9 @@ the batches) are NumPy copies of the reference's and match it bit for bit;
 the gradients are plain autograd on the experiment's device.  The port's
 initial weights come from a ``torch.Generator`` (other numbers than the
 reference's ``jax.random``): `train(..., params=...)` takes carried ones
-(``repro_torch.carry.model_params_from_reference``).  The model families
-the port does not run (MoE, MLA, RWKV, Mamba, enc-dec, VLM prefix) raise
-``NotImplementedError``.
+(``repro_torch.carry.model_params_from_reference``).  The families whose
+training is not ported yet (MoE, MLA, RWKV, Mamba, enc-dec, VLM prefix;
+the port serves them) raise ``NotImplementedError``.
 
     PYTHONPATH=src python -m repro_torch.launch.train [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --full-config
@@ -38,6 +38,7 @@ from repro_torch.core import load_allocation
 from repro_torch.core.delay_model import mec_network, packet_bits, scale_tau
 from repro_torch.data.pipeline import PackedLMDataset, PipelineConfig
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import transformer
 from repro_torch.models.common import dtype_of
 from repro_torch.models.model_zoo import build
 from repro_torch.optim import optimizers
@@ -95,6 +96,7 @@ def train(cfg, steps: int = 20, batch: int = 4, seq: int = 64,
     given, receives ``step_s`` (each step's seconds, the device synced at
     its end) and, federated, ``t_star``, ``loads``, ``p_ret`` and
     ``returned`` (each step's returned clients, in client order)."""
+    transformer.check_trainable(cfg)
     dev = resolve_device(device)
     model = build(cfg)
     if params is None:

@@ -75,8 +75,10 @@ def _out(p, out):
         H * hd_v, D)
 
 
-def _flash(q, k, v, q_pos, k_pos, window: int, chunk: int = 512):
-    """Online-softmax attention for S > 1 (prefill), plain PyTorch.
+def _flash(q, k, v, q_pos, k_pos, window: int, chunk: int = 512,
+           causal: bool = True):
+    """Online-softmax attention, plain PyTorch: prefill (S > 1), and the
+    encoder's and the cross-attention's (``causal=False``, any S).
 
     q: (B, S, H, hd); k, v: (B, T, K, hd / hd_v); q_pos (S,), k_pos (T,)
     int global positions (-1 for an empty slot) -> (B, S, H, hd_v) in q's
@@ -87,7 +89,10 @@ def _flash(q, k, v, q_pos, k_pos, window: int, chunk: int = 512):
     a causal row always has one, its own position).  Under autograd a
     skipped chunk changes no gradient either: its weights are exactly 0.
     The tile list read back to the host is a function of the positions
-    alone, so a recompute in the backward skips the same chunks.
+    alone, so a recompute in the backward skips the same chunks.  With
+    ``causal=False`` a slot is valid wherever its position is >= 0 (and
+    inside the window), and no chunk is skipped: a row without a valid
+    slot averages v over every slot, as the reference's does.
     """
     B, S, H, hd = q.shape
     T, K, hd_v = k.shape[1], k.shape[2], v.shape[-1]
@@ -97,16 +102,22 @@ def _flash(q, k, v, q_pos, k_pos, window: int, chunk: int = 512):
     qr = (q.float() * scale).reshape(B, S, K, G, hd).permute(0, 2, 1, 3, 4)
     kt = k.permute(0, 2, 1, 3)
     vt = v.permute(0, 2, 1, 3)
-    valid = (k_pos[None, :] >= 0) & (k_pos[None, :] <= q_pos[:, None])
+    valid = (k_pos[None, :] >= 0).expand(S, T)
+    if causal:
+        valid = valid & (k_pos[None, :] <= q_pos[:, None])
     if window > 0:
         valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
     out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=q.device)
     n_q, n_k = -(-S // chunk), -(-T // chunk)
-    # which (query tile, KV chunk) pairs hold any valid slot: one host read
-    tiles = torch.zeros((n_q * chunk, n_k * chunk), dtype=torch.bool,
-                        device=q.device)
-    tiles[:S, :T] = valid
-    pairs = tiles.reshape(n_q, chunk, n_k, chunk).any(3).any(1).cpu()
+    if causal:
+        # which (query tile, KV chunk) pairs hold any valid slot: one
+        # host read
+        tiles = torch.zeros((n_q * chunk, n_k * chunk), dtype=torch.bool,
+                            device=q.device)
+        tiles[:S, :T] = valid
+        pairs = tiles.reshape(n_q, chunk, n_k, chunk).any(3).any(1).cpu()
+    else:
+        pairs = torch.ones((n_q, n_k), dtype=torch.bool)
     for i in range(n_q):
         s0, s1 = i * chunk, min(S, (i + 1) * chunk)
         q_i = qr[:, :, s0:s1].reshape(B, K, (s1 - s0) * G, hd)

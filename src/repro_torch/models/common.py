@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -36,6 +37,13 @@ def embed_init(gen: torch.Generator, shape, dtype):
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * 0.02).to(dtype)
+
+
+def frozen_params(tensors: dict) -> nn.ParameterDict:
+    """A weight group as a ParameterDict of frozen parameters (keys in
+    sorted order, as ``nn.ParameterDict`` keeps a plain dict's)."""
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+                             for k, t in tensors.items()})
 
 
 # ----------------------------------------------------------------- norms

@@ -1,20 +1,20 @@
-"""Uniform Model facade over the decoder-only stack (the counterpart of
-``repro.models.model_zoo``): training (`loss_fn`, `abstract_params`) and
-serving of the dense family; the encoder-decoder stack is not ported
-yet."""
+"""Uniform Model facade over the decoder-only stack and the
+encoder-decoder stack (the counterpart of ``repro.models.model_zoo``).
+Every family serves (`prefill`, `decode_step`); training (`loss_fn`,
+`abstract_params`) raises NotImplementedError but for the dense family."""
 from __future__ import annotations
 
 import dataclasses
 import functools
 from typing import Any, Callable
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: Any
-    init_params: Callable      # (seed=0, device=None) -> Transformer
+    init_params: Callable      # (seed=0, device=None) -> Transformer/EncDec
     abstract_params: Callable  # () -> Transformer on the meta device
     loss_fn: Callable          # (params, batch, window=0, remat=True) -> loss
     prefill: Callable          # (params, batch, window=0, cache_len=None)
@@ -23,15 +23,15 @@ class Model:
 
 
 def build(cfg) -> Model:
-    """The model of `cfg`; raises NotImplementedError for a family the port
-    does not run yet (enc-dec, VLM prefix, MoE, MLA, RWKV, Mamba)."""
-    transformer.check_supported(cfg)
+    """The model of `cfg`: the enc-dec stack where ``cfg.is_encdec``, else
+    the decoder-only one."""
+    mod = encdec if cfg.is_encdec else transformer
     return Model(
         cfg=cfg,
-        init_params=functools.partial(transformer.init_params, cfg),
-        abstract_params=functools.partial(transformer.abstract_params, cfg),
-        loss_fn=functools.partial(transformer.loss_fn, cfg),
-        prefill=functools.partial(transformer.prefill, cfg),
-        decode_step=functools.partial(transformer.decode_step, cfg),
-        init_cache=functools.partial(transformer.init_cache, cfg),
+        init_params=functools.partial(mod.init_params, cfg),
+        abstract_params=functools.partial(mod.abstract_params, cfg),
+        loss_fn=functools.partial(mod.loss_fn, cfg),
+        prefill=functools.partial(mod.prefill, cfg),
+        decode_step=functools.partial(mod.decode_step, cfg),
+        init_cache=functools.partial(mod.init_cache, cfg),
     )

@@ -1,25 +1,31 @@
-"""Decoder-only model, dense family: training (`loss_fn`,
-`hidden_states`), prefill and decode (the counterparts of
+"""Decoder-only model: serving (prefill, decode) of every decoder family
+(dense GQA, MoE, MLA, RWKV-6, Mamba hybrid, VLM prefix) and training
+(`loss_fn`, `hidden_states`) of the dense one (the counterparts of
 ``repro.models.transformer``).
 
-The reference stacks each stage's layer params on a leading axis and
-``lax.scan``s over them; here a `Transformer` module holds a
-``ModuleList`` of `DenseLayer`s and runs them in a Python loop.  Param
-names and layouts are the reference's (``embed`` (V, D), ``lm_head``
-(D, V), per layer ``ln1``, ``ln2``, ``attn.{wq, wk, wv, wo, qn, kn}``,
-``ffn.{w1, w3, w2}``), so ``repro_torch.carry`` can hand the reference's
-weights over and stack them back.  A cache is a list with one attention
-cache per layer.
+Layers come in the reference's *stages* (`stages`): a stage is a pattern
+of (mixer, ffn) layer specs repeated its count of times (jamba: one
+attention layer and seven Mamba layers, the odd ones with an MoE FFN;
+deepseek: a dense-FFN MLA layer, then MoE ones).  The reference stacks
+each stage's params on a leading axis and ``lax.scan``s over them; here a
+`Transformer` holds every layer in order (`layer_specs`) in a
+``ModuleList`` of `Layer`s and runs them in a Python loop.  Param names
+and layouts are the reference's (``embed`` (V, D), ``lm_head`` (D, V),
+``patch_proj`` (D, D), per layer ``ln1``, ``ln2``, the mixer's group
+``attn``/``mla``/``rwkv``/``mamba`` and the FFN's ``ffn``/``moe``), and
+so are the leaf dtypes (`FLOAT32_LEAVES` stay float32 in a bf16 model),
+so ``repro_torch.carry`` can hand the reference's weights over and stack
+them back.  A cache is a list with one entry a layer: an attention cache,
+an MLA latent cache, or a recurrent state, each written in place.
 
 The parameters are built frozen (``requires_grad=False``); the training
 entry points (``repro_torch.launch.train.train``) switch gradients on.
 `prefill` and `decode_step` run under ``torch.no_grad`` either way.
 `loss_fn` is plain autograd: the reference trains through XLA ops, no
-Pallas kernel and no custom gradient.
-
-The port runs the dense stage only: a config whose layers hold MoE, MLA,
-RWKV or Mamba mixers, an encoder (enc-dec) or a VLM patch prefix raises
-``NotImplementedError`` naming the family, for training as for serving.
+Pallas kernel and no custom gradient.  Training a family other than the
+dense one (its MoE aux loss, its scans under autograd) is not ported yet:
+`loss_fn`, `hidden_states` and `abstract_params` raise
+``NotImplementedError`` naming the family (`check_trainable`).
 """
 from __future__ import annotations
 
@@ -28,9 +34,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention
+from repro_torch.models import attention, mla, moe, ssm_mamba, ssm_rwkv
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
-                                       rms_norm, rope_freqs,
+                                       frozen_params, rms_norm, rope_freqs,
                                        softmax_cross_entropy, swiglu)
 
 
@@ -41,6 +47,7 @@ def stages(cfg) -> list[tuple[tuple[tuple[str, str], ...], int]]:
         return [((("rwkv", "rwkv_ffn"),), L)]
     if cfg.arch_type == "hybrid":                   # jamba: 1:7, alt MoE
         n = cfg.ssm.attn_every_n
+        assert L % n == 0
         pattern = []
         for i in range(n):
             mixer = "attn" if i == 0 else "mamba"
@@ -56,110 +63,191 @@ def stages(cfg) -> list[tuple[tuple[tuple[str, str], ...], int]]:
 
 _FAMILIES = {"rwkv": "RWKV", "rwkv_ffn": "RWKV", "mamba": "Mamba",
              "mla": "MLA", "moe": "MoE"}
+# the reference's param key of each layer part
+FFN_KEYS = {"dense": "ffn", "moe": "moe", "rwkv_ffn": "ffn"}
+# the float32 leaves of a bf16 model: {(group key, leaf name)}
+FLOAT32_LEAVES = {("moe", "router"), ("rwkv", "w0"), ("rwkv", "u"),
+                  ("mamba", "dt_proj_b"), ("mamba", "A_log"),
+                  ("mamba", "D")}
 
 
-def check_supported(cfg) -> None:
-    """Raise NotImplementedError for a family the port does not serve."""
+def leaf_dtype(cfg, group: str, name: str) -> torch.dtype:
+    """The dtype of a layer leaf: float32 for `FLOAT32_LEAVES`, else the
+    config's."""
+    return (torch.float32 if (group, name) in FLOAT32_LEAVES
+            else dtype_of(cfg))
+
+
+def layer_specs(cfg) -> list[tuple[str, str]]:
+    """Every layer's (mixer, ffn) in order: each stage's pattern repeated
+    its count of times."""
+    return [spec for pattern, count in stages(cfg) for _ in range(count)
+            for spec in pattern]
+
+
+def check_trainable(cfg) -> None:
+    """Raise NotImplementedError for a family whose training is not ported
+    yet (every family but the dense one); serving takes every family."""
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet")
+            f"{cfg.name}: training the encoder-decoder family is not "
+            "ported yet (the port serves it)")
     if cfg.n_prefix_patches:
         raise NotImplementedError(
-            f"{cfg.name}: the VLM patch prefix is not ported yet")
+            f"{cfg.name}: training with the VLM patch prefix is not ported "
+            "yet (the port serves it)")
     for pattern, _ in stages(cfg):
         for spec in pattern:
             missing = sorted({_FAMILIES[s] for s in spec if s in _FAMILIES})
             if missing:
                 raise NotImplementedError(
-                    f"{cfg.name}: the {', '.join(missing)} family is not "
-                    "ported yet (the port serves dense attention + dense "
-                    "FFN layers)")
+                    f"{cfg.name}: training the {', '.join(missing)} family "
+                    "is not ported yet (the port serves it; it trains "
+                    "dense attention + dense FFN layers)")
 
 
-def _params(tensors: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
-                             for k, t in tensors.items()})
+class Layer(nn.Module):
+    """One (mixer, ffn) layer: pre-norm mixer, pre-norm FFN.  The mixer's
+    weights are the attribute named after it (``attn``, ``mla``, ``rwkv``
+    or ``mamba``), the FFN's ``ffn`` (dense, rwkv_ffn) or ``moe``: the
+    reference's keys."""
 
+    norms = ("ln1", "ln2")
 
-class DenseLayer(nn.Module):
-    """One (attn, dense) layer: pre-norm attention, pre-norm SwiGLU."""
-
-    def __init__(self, ln1, ln2, attn: dict, ffn: dict):
+    def __init__(self, spec, ln1, ln2, mixer: dict, ffn: dict):
         super().__init__()
+        self.spec = tuple(spec)
+        self.mixer_key, self.ffn_key = spec[0], FFN_KEYS[spec[1]]
         self.ln1 = nn.Parameter(ln1, requires_grad=False)
         self.ln2 = nn.Parameter(ln2, requires_grad=False)
-        self.attn = _params(attn)
-        self.ffn = _params(ffn)
+        setattr(self, self.mixer_key, frozen_params(mixer))
+        setattr(self, self.ffn_key, frozen_params(ffn))
+
+    @property
+    def groups(self) -> dict:
+        """{reference key: ParameterDict} of the layer's weight groups."""
+        return {self.mixer_key: getattr(self, self.mixer_key),
+                self.ffn_key: getattr(self, self.ffn_key)}
 
     def forward(self, x, cfg, cache, freqs, *, positions=None, pos=None,
-                window: int = 0):
-        """Train (no cache) or prefill with `positions` (S,), or decode
-        with int `pos`; returns x (a cache is updated in place)."""
+                window: int = 0, chunked: bool = True):
+        """Train (no cache; attention + dense FFN only) or prefill with
+        `positions` (S,), or decode with int `pos`; returns x (the cache
+        or the recurrent state is updated in place)."""
+        mixer, ffn = self.spec
+        p = getattr(self, self.mixer_key)
+        prefill = positions is not None
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         if cache is None:
-            out = attention.attn_train(self.attn, h, positions, cfg, window,
-                                       freqs)
-        elif positions is not None:
-            out, _ = attention.attn_prefill(self.attn, h, positions, cfg,
-                                            cache, window, freqs)
+            out = attention.attn_train(p, h, positions, cfg, window, freqs)
+        elif mixer == "attn":
+            if prefill:
+                out, _ = attention.attn_prefill(p, h, positions, cfg, cache,
+                                                window, freqs)
+            else:
+                out, _ = attention.attn_decode(p, h, pos, cfg, cache, window,
+                                               freqs)
+        elif mixer == "mla":
+            if prefill:
+                out, _ = mla.mla_prefill(p, h, positions, cfg, cache, window,
+                                         freqs)
+            else:
+                out, _ = mla.mla_decode(p, h, pos, cfg, cache, window, freqs)
+        elif mixer == "rwkv":
+            out = ssm_rwkv.rwkv_mix(p, h, cache, cfg,
+                                    chunked=chunked and prefill)
         else:
-            out, _ = attention.attn_decode(self.attn, h, pos, cfg, cache,
-                                           window, freqs)
+            out = ssm_mamba.mamba_block(p, h, cache, cfg,
+                                        chunked=chunked and prefill)
         x = x + out
+        q = getattr(self, self.ffn_key)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + swiglu(h, self.ffn["w1"], self.ffn["w3"], self.ffn["w2"])
+        if ffn == "dense":
+            out = swiglu(h, q["w1"], q["w3"], q["w2"])
+        elif ffn == "moe":
+            out, _ = moe.moe_ffn(q, h, cfg)
+        else:
+            out, cache["x_prev_ffn"] = ssm_rwkv.rwkv_ffn(
+                q, h, cache["x_prev_ffn"], cfg)
+        return x + out
+
+
+def _rope_dim(cfg) -> int:
+    return cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.head_dim
 
 
 class Transformer(nn.Module):
-    """Weights of a dense decoder-only model, and its rope frequencies
-    (a buffer on the weights' device)."""
+    """Weights of a decoder-only model (every stage's layers in order in
+    `layers`), and its rope frequencies (a buffer on the weights'
+    device)."""
 
-    def __init__(self, cfg, embed, final_norm, lm_head, layers):
+    def __init__(self, cfg, embed, final_norm, lm_head, layers,
+                 patch_proj=None):
         super().__init__()
-        check_supported(cfg)
-        if len(layers) != cfg.n_layers:
-            raise ValueError(f"{cfg.name}: {len(layers)} layers for "
-                             f"n_layers = {cfg.n_layers}")
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name}: an encoder-decoder config "
+                             "(repro_torch.models.encdec)")
+        specs = layer_specs(cfg)
+        if [layer.spec for layer in layers] != specs:
+            raise ValueError(f"{cfg.name}: {len(layers)} layers "
+                             f"{[layer.spec for layer in layers][:3]}... "
+                             f"for the stages' {len(specs)} {specs[:3]}...")
+        if (patch_proj is None) != (not cfg.n_prefix_patches):
+            raise ValueError(f"{cfg.name}: patch_proj goes with "
+                             f"n_prefix_patches = {cfg.n_prefix_patches}")
         self.cfg = cfg
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.lm_head = (None if lm_head is None
                         else nn.Parameter(lm_head, requires_grad=False))
+        self.patch_proj = (None if patch_proj is None
+                           else nn.Parameter(patch_proj, requires_grad=False))
         self.layers = nn.ModuleList(layers)
         self.register_buffer("rope_freqs", torch.from_numpy(
-            rope_freqs(cfg.head_dim, cfg.rope_theta)).to(embed.device),
+            rope_freqs(_rope_dim(cfg), cfg.rope_theta)).to(embed.device),
             persistent=False)
 
 
-def _init_layer(gen, cfg, dtype) -> DenseLayer:
-    ones = torch.ones((cfg.d_model,), dtype=dtype, device=gen.device)
-    attn = attention.init_attn(gen, cfg, dtype)
-    D, F = cfg.d_model, cfg.d_ff
-    ffn = {"w1": dense_init(gen, (D, F), dtype),
-           "w3": dense_init(gen, (D, F), dtype),
-           "w2": dense_init(gen, (F, D), dtype)}
-    return DenseLayer(ones, ones.clone(), attn, ffn)
+def _init_layer(gen, spec, cfg, dtype) -> Layer:
+    mixer, ffn = spec
+    D, Fd = cfg.d_model, cfg.d_ff
+    ones = torch.ones((D,), dtype=dtype, device=gen.device)
+    mixer_p = {"attn": attention.init_attn, "mla": mla.init_mla,
+               "rwkv": ssm_rwkv.init_rwkv_mix,
+               "mamba": ssm_mamba.init_mamba}[mixer](gen, cfg, dtype)
+    if ffn == "dense":
+        ffn_p = {"w1": dense_init(gen, (D, Fd), dtype),
+                 "w3": dense_init(gen, (D, Fd), dtype),
+                 "w2": dense_init(gen, (Fd, D), dtype)}
+    elif ffn == "moe":
+        ffn_p = moe.init_moe(gen, cfg, dtype)
+    else:
+        ffn_p = ssm_rwkv.init_rwkv_ffn(gen, cfg, dtype)
+    return Layer(spec, ones, ones.clone(), mixer_p, ffn_p)
 
 
 def init_params(cfg, seed: int = 0, device=None) -> Transformer:
     """Random weights from a ``torch.Generator`` seeded with `seed` on
-    `device` (the reference's initializers and scales; other numbers than
-    its ``jax.random`` draws)."""
-    check_supported(cfg)
+    `device` (the reference's initializers, scales and leaf dtypes; other
+    numbers than its ``jax.random`` draws)."""
     dtype = dtype_of(cfg)
     gen = torch.Generator(device=device or "cpu").manual_seed(seed)
     V, D = cfg.vocab_padded, cfg.d_model
     embed = embed_init(gen, (V, D), dtype)
     lm_head = None if cfg.tie_embeddings else dense_init(gen, (D, V), dtype)
-    layers = [_init_layer(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+    patch_proj = (dense_init(gen, (D, D), dtype) if cfg.n_prefix_patches
+                  else None)
+    layers = [_init_layer(gen, spec, cfg, dtype)
+              for spec in layer_specs(cfg)]
     final_norm = torch.ones((D,), dtype=dtype, device=gen.device)
-    return Transformer(cfg, embed, final_norm, lm_head, layers)
+    return Transformer(cfg, embed, final_norm, lm_head, layers, patch_proj)
 
 
 def abstract_params(cfg) -> Transformer:
     """The model's parameters on the ``meta`` device: shapes and dtypes,
-    no storage (the counterpart of the reference's ``eval_shape`` tree)."""
-    check_supported(cfg)
+    no storage (the counterpart of the reference's ``eval_shape`` tree),
+    for training checkpoints: the dense family only."""
+    check_trainable(cfg)
     dtype = dtype_of(cfg)
 
     def empty(*shape):
@@ -168,22 +256,37 @@ def abstract_params(cfg) -> Transformer:
     V, D, Fd = cfg.vocab_padded, cfg.d_model, cfg.d_ff
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     layers = []
-    for _ in range(cfg.n_layers):
+    for spec in layer_specs(cfg):
         attn = {"wq": empty(D, H, hd), "wk": empty(D, K, hd),
                 "wv": empty(D, K, hd), "wo": empty(H, hd, D)}
         if cfg.qk_norm:
             attn["qn"], attn["kn"] = empty(hd), empty(hd)
         ffn = {"w1": empty(D, Fd), "w3": empty(D, Fd), "w2": empty(Fd, D)}
-        layers.append(DenseLayer(empty(D), empty(D), attn, ffn))
+        layers.append(Layer(spec, empty(D), empty(D), attn, ffn))
     lm_head = None if cfg.tie_embeddings else empty(D, V)
     return Transformer(cfg, empty(V, D), empty(D), lm_head, layers)
 
 
 def init_cache(cfg, batch: int, max_seq: int, window: int = 0,
                device=None) -> list[dict]:
-    check_supported(cfg)
-    return [attention.init_cache(cfg, batch, max_seq, dtype_of(cfg), window,
-                                 device) for _ in range(cfg.n_layers)]
+    """One cache a layer: {k, v, pos} (attn), {c, kpe, pos} (mla), the
+    recurrent state {x_prev_mix, x_prev_ffn, wkv} (rwkv) or {conv, h}
+    (mamba); the attention caches hold `max_seq` slots (min(max_seq,
+    window) with a window), the states do not depend on it."""
+    dtype = dtype_of(cfg)
+    out = []
+    for mixer, _ in layer_specs(cfg):
+        if mixer == "attn":
+            out.append(attention.init_cache(cfg, batch, max_seq, dtype,
+                                            window, device))
+        elif mixer == "mla":
+            out.append(mla.init_mla_cache(cfg, batch, max_seq, dtype, window,
+                                          device))
+        elif mixer == "rwkv":
+            out.append(ssm_rwkv.init_rwkv_state(cfg, batch, dtype, device))
+        else:
+            out.append(ssm_mamba.init_mamba_state(cfg, batch, dtype, device))
+    return out
 
 
 def _embed_tokens(cfg, params, tokens):
@@ -193,8 +296,14 @@ def _embed_tokens(cfg, params, tokens):
 
 
 def _inputs_embeds(cfg, params, batch):
-    """Token embeddings (the VLM patch prefix is not ported)."""
-    return _embed_tokens(cfg, params, batch["tokens"])
+    """Token embeddings, after the VLM patch prefix (patch_embeds
+    (B, P, D) @ patch_proj) where the config has one."""
+    emb = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.n_prefix_patches:
+        patches = batch["patch_embeds"].to(device=emb.device,
+                                           dtype=emb.dtype)
+        emb = torch.cat([patches @ params.patch_proj, emb], dim=1)
+    return emb
 
 
 def _logits(cfg, params, x):
@@ -231,7 +340,7 @@ def loss_fn(cfg, params, batch, window: int = 0, remat: bool = True,
     -100 masks a position out.  The mean cross-entropy over the unmasked
     positions (float32); a dense model has no auxiliary loss.  `chunked`
     is the reference's switch for the recurrent families, unused here."""
-    check_supported(cfg)
+    check_trainable(cfg)
     x = _inputs_embeds(cfg, params, batch)
     x = _run_layers(cfg, params, x, window, remat)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -244,19 +353,23 @@ def loss_fn(cfg, params, batch, window: int = 0, remat: bool = True,
 def hidden_states(cfg, params, batch, window: int = 0, chunked: bool = True):
     """Final-norm hidden states (B, S, D): the feature extractor of the
     coded linear-probe head (``repro_torch.core.coded_probe``)."""
-    check_supported(cfg)
+    check_trainable(cfg)
     x = _inputs_embeds(cfg, params, batch)
     x = _run_layers(cfg, params, x, window, remat=False)
     return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, window: int = 0, cache_len: int | None = None):
-    """Returns (last-position logits (B, V), cache).
+def prefill(cfg, params, batch, window: int = 0, cache_len: int | None = None,
+            chunked: bool = True):
+    """batch: tokens (B, S) [, patch_embeds (B, P, D)].  Returns
+    (last-position logits (B, V), cache).
 
-    The cache has `cache_len` positions (default: the prompt length S), so
-    that a caller that will decode past S need not grow it: slots past S
-    hold position -1, as the reference's grown cache does."""
+    The attention caches have `cache_len` positions (default: the prompt
+    length P + S), so that a caller that will decode past it need not
+    grow them: slots past the prompt hold position -1, as the reference's
+    grown cache does.  `chunked` lets the recurrent mixers take their
+    chunked forms where the reference's would."""
     x = _inputs_embeds(cfg, params, batch)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -264,7 +377,7 @@ def prefill(cfg, params, batch, window: int = 0, cache_len: int | None = None):
                        x.device)
     for layer, c in zip(params.layers, cache):
         x = layer(x, cfg, c, params.rope_freqs, positions=positions,
-                  window=window)
+                  window=window, chunked=chunked)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(cfg, params, x[:, -1, :]), cache
 

@@ -549,6 +549,10 @@ GQA_CASES = [
     ("masked_chunks", 2, 8, 2, 32, 32, 256, 100,
      np.r_[np.arange(192), -np.ones(64)], 191),
     ("no_valid_slot", 1, 4, 2, 16, 16, 128, 0, -np.ones(128), 127),
+    # the model zoo's other decode shapes: internvl2's G = 14 / 2 = 7 and
+    # deepseek's MLA (G = 1, hd 192 = 128 + 64, hd_v 128)
+    ("g7_internvl2", 2, 14, 2, 64, 64, 100, 0, None, 99),
+    ("mla_hd192", 2, 16, 16, 192, 128, 70, 0, None, 69),
 ]
 
 
@@ -1097,6 +1101,17 @@ _GQA_EDGES = [
     (2, 8, 2, 32, 32, 96, 96, _rolling_positions(96, 245), 245),
     (2, 8, 2, 32, 32, 256, 100, np.r_[np.arange(192), -np.ones(64)], 191),
     (1, 4, 2, 16, 16, 130, 0, -np.ones(130), 129),     # no valid slot
+    # the model zoo's other decode shapes at the tile edges: G = 7, hd 64
+    # (internvl2); G = 1, hd 192, hd_v 128 (MLA); G = 1, hd 64 (whisper)
+    (2, 14, 2, 64, 64, 31, 0, None, 30),
+    (2, 14, 2, 64, 64, 32, 0, None, 31),
+    (2, 14, 2, 64, 64, 33, 0, None, 32),
+    (2, 14, 2, 64, 64, 129, 0, None, 128),
+    (2, 16, 16, 192, 128, 31, 0, None, 30),
+    (2, 16, 16, 192, 128, 32, 0, None, 31),
+    (2, 16, 16, 192, 128, 33, 0, None, 32),
+    (2, 16, 16, 192, 128, 129, 0, None, 128),
+    (2, 8, 8, 64, 64, 33, 0, None, 32),
 ]
 
 

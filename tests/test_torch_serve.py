@@ -1,5 +1,6 @@
 """The port's serving path (model zoo, dense family) against the JAX
-reference, on the CPU.
+reference, on the CPU (the other families: test_torch_families.py and
+test_torch_recurrent.py).
 
 Configs, the packed-LM pipeline and the prompt batch must be the same
 values (configs under ``dataclasses.asdict``, tokens bit for bit).  Model
@@ -44,13 +45,14 @@ from repro_torch.configs import ARCH_IDS, decode_window, get_config, \
     smoke_variant
 from repro_torch.configs import mnist_rff as t_mnist_rff
 from repro_torch.data import pipeline
+from repro_torch.launch import train as t_train
 from repro_torch.launch.serve import serve
 from repro_torch.launch.train import make_batch
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.model_zoo import build
 
 DENSE = ("qwen3-4b", "yi-6b")
-NOT_PORTED = {"mixtral-8x7b": "MoE", "deepseek-v2-lite-16b": "MLA",
+TRAINING_NOT_PORTED = {"mixtral-8x7b": "MoE", "deepseek-v2-lite-16b": "MLA",
               "rwkv6-1.6b": "RWKV", "jamba-1.5-large-398b": "Mamba",
               "whisper-base": "encoder-decoder",
               "internvl2-1b": "VLM patch prefix"}
@@ -360,13 +362,24 @@ def test_carried_bfloat16_params_keep_their_bits():
         params_ref["stage0"]["l0"]["attn"]["wo"][1].astype(np.float32))
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_PORTED))
+@pytest.mark.parametrize("arch", sorted(TRAINING_NOT_PORTED))
 def test_non_dense_configs_raise(arch):
+    """The other families serve (`build` and `init_params` succeed; their
+    serving is held against the reference in test_torch_families.py and
+    test_torch_recurrent.py); their training still raises, naming the
+    family and training."""
     cfg = smoke_variant(get_config(arch))
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        build(cfg)
-    with pytest.raises(NotImplementedError, match=NOT_PORTED[arch]):
-        transformer.init_params(cfg, device="cpu")
+    model = build(cfg)
+    params = model.init_params(device="cpu")
+    assert params.cfg == cfg
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "labels": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError,
+                       match=f"training.*{TRAINING_NOT_PORTED[arch]}|"
+                       f"{TRAINING_NOT_PORTED[arch]}.*training"):
+        model.loss_fn(params, batch)
+    with pytest.raises(NotImplementedError, match="training"):
+        t_train.train(cfg, steps=1, device="cpu")
 
 
 def test_serve_without_device_needs_cuda():
