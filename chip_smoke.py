@@ -232,7 +232,23 @@ Phases, each printed as one JSON object per line:
              linreg_grad_masked, no linreg_grad: the fused coded round),
              training accuracy > 0.5, theta against a CPU run of the FL
              half on the same features and (Omega, delta), the extraction
-             and setup seconds;
+             and setup seconds.  families: the model zoo's six other
+             families trained through repro_torch.launch.train.train at
+             their published widths in bf16 from seeded weights, batch 4,
+             seq 64 (internvl2 320: 256 patches + 64 tokens), 10 steps:
+             deepseek-v2-lite-16b (6 of 27 layers), mixtral-8x7b (2 of
+             32), jamba-1.5-large-398b (one attention + dense and one
+             Mamba + MoE layer, SGD), rwkv6-1.6b, internvl2-1b,
+             whisper-base, each with finite losses, a rerun from the same
+             seed loss for loss, first-step and warm ms/step, tokens/s,
+             peak bytes against the reckoned state, the step's bound and
+             the MoE families' aux at step 0; the smoke variants card
+             against CPU in float32 (loss, every grad leaf, 3 optimizer
+             steps), rwkv6 at full width (2 layers, 128 positions) and
+             jamba's smoke variant at 128 positions card against CPU, one
+             full-width jamba gradient at 128 positions (F4 read as a
+             measurement), and train(federated=True) on deepseek's smoke
+             variant against the host replay of its delay draws;
  28. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
@@ -454,6 +470,40 @@ TRAIN_LEAF_TOL = 1e-5
 TRAIN_STEPS_TOL = 1e-4
 TRAIN_BF16_TOL = 1e-3
 PROBE_THETA_TOL = 1e-5
+
+# the train phase's families part: the model zoo's six other families
+# trained through launch.train.train at their published widths in bf16
+# (src/repro/configs/<arch>.py) from seeded weights, batch 4, seq 64
+# (internvl2: 320 = 256 patches + 64 tokens), 10 steps, a rerun from the
+# same seed; cut in depth only where one card's 80 GB cannot hold the
+# step's state (bf16 p and g, float32 Adam m and v: 12 B a parameter):
+# (arch, config changes, optimizer, why)
+TRAIN_FAMILIES = (
+    ("deepseek-v2-lite-16b", {"n_layers": 6}, "adam",
+     "6 of 27 layers (the dense-FFN MLA layer and 5 MLA + MoE layers): "
+     "3.37e9 params, ~40 GB of Adam state; whole (15.7e9) ~188 GB"),
+    ("mixtral-8x7b", {"n_layers": 2}, "adam",
+     "2 of 32 layers: 3.17e9 params, ~38 GB of Adam state"),
+    ("jamba-1.5-large-398b", {"n_layers": 2, "attn_every_n": 2}, "sgd",
+     "one attention + dense and one Mamba + MoE layer (attn_every_n 2, "
+     "n_layers 2), as the families phase serves it: 11.9e9 params; SGD, "
+     "as Adam's state would be ~143 GB and SGD's p and g are ~48 GB"),
+    ("rwkv6-1.6b", {}, "adam", None),
+    ("internvl2-1b", {}, "adam", None),
+    ("whisper-base", {}, "adam", None),
+)
+TRAIN_FAM = dict(steps=10, batch=4, seq=64, seed=0)
+TRAIN_FAM_SEQ = {"internvl2-1b": 320}
+# the smoke variants card against CPU (float32); rwkv6 at full width, 2
+# layers, at 128 positions (two 64-token wkv chunks under autograd at its
+# real head count); jamba's smoke variant at 128 positions (the chunked
+# Mamba scan, its chunks recomputed in the backward)
+TRAIN_FAM_CHECK = dict(batch=2, seq=64, steps=3, seed=1)
+RWKV_FULL_CHECK = dict(n_layers=2, batch=2, seq=128)
+JAMBA_CHUNK_SEQ = 128
+# federated deadline aggregation on deepseek's smoke variant, 8 clients
+FED_FAMILY = dict(arch="deepseek-v2-lite-16b", steps=10, clients=8,
+                  batch=2, seq=64)
 
 
 def emit(obj) -> None:
@@ -3578,76 +3628,33 @@ def _train_check(torch, dev, state) -> None:
     """qwen3-4b's widths at TRAIN_CHECK["n_layers"] layers in float32: the
     loss and every gradient leaf on the card against the CPU, then 3 Adam
     steps of train() on both."""
-    import copy
-
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import make_batch, train
-    from repro_torch.models import transformer
+    from repro_torch.launch.train import make_batch
 
     cfg = dataclasses.replace(get_config(TRAIN_ARCH),
                               n_layers=TRAIN_CHECK["n_layers"],
                               dtype="float32")
     B, S = TRAIN_CHECK["batch"], TRAIN_CHECK["seq"]
-    cpu_params = transformer.init_params(cfg, seed=1, device="cpu")
-    batch = make_batch(cfg, B, S, 1)
-    out = {}
-    for where in (dev, "cpu"):
-        params = (copy.deepcopy(cpu_params).to(where) if where == dev
-                  else cpu_params)
-        params.requires_grad_(True)
-        t0 = time.perf_counter()
-        # remat on the card, not on the CPU: the comparison holds both
-        loss = transformer.loss_fn(cfg, params, batch,
-                                   remat=where == dev)
-        loss.backward()
-        grads = {k: p.grad.cpu() for k, p in params.named_parameters()}
-        out[where == dev] = (float(loss.detach()), grads,
-                             time.perf_counter() - t0)
-        params.requires_grad_(False)
-        for p in params.parameters():
-            p.grad = None
-        del params
-    (loss_d, g_d, sec_d), (loss_c, g_c, sec_c) = out[True], out[False]
-    loss_err = abs(loss_d - loss_c) / abs(loss_c)
-    worst, worst_key = 0.0, None
-    for key, want in g_c.items():
-        err = float((g_d[key] - want).abs().max()) / max(
-            float(want.abs().max()), 1e-30)
-        if not err <= worst:
-            worst, worst_key = err, key
-    del g_d, g_c
-    _release(torch)
-    steps = {}
-    for where in (dev, "cpu"):
-        params = copy.deepcopy(cpu_params)
-        t0 = time.perf_counter()
-        _, losses, _ = train(cfg, steps=TRAIN_CHECK["steps"], batch=B,
-                             seq=S, log_every=0, seed=1, device=where,
-                             params=params)
-        steps[where == dev] = (losses, time.perf_counter() - t0)
-        del params
-        _release(torch)
-    (l_d, s_d), (l_c, s_c) = steps[True], steps[False]
-    step_err = max(abs(a - b) / abs(b) for a, b in zip(l_d, l_c))
+    res = _grads_card_vs_cpu(torch, dev, cfg, make_batch(cfg, B, S, 1),
+                             "adam", TRAIN_CHECK["steps"], seed=1)
     emit({"phase": "train", "part": "check", "layers": cfg.n_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype,
-          "batch": B, "seq": S, "loss_card": loss_d, "loss_cpu": loss_c,
-          "loss_rel_err": loss_err, "grad_leaves": len(out[True][1]),
-          "worst_grad_leaf_err": worst, "worst_grad_leaf": worst_key,
+          "batch": B, "seq": S, "loss_card": res["loss_card"],
+          "loss_cpu": res["loss_cpu"], "loss_rel_err": res["loss_rel_err"],
+          "grad_leaves": res["grad_leaves"],
+          "worst_grad_leaf_err": res["worst_grad_leaf_err"],
+          "worst_grad_leaf": res["worst_grad_leaf"],
           "loss_rel_tol": TRAIN_LOSS_TOL, "grad_leaf_tol": TRAIN_LEAF_TOL,
-          "adam_losses_card": l_d, "adam_losses_cpu": l_c,
-          "adam_loss_rel_err": step_err, "adam_rel_tol": TRAIN_STEPS_TOL,
-          "grad_s_card": sec_d, "grad_s_cpu": sec_c,
-          "adam_s_card": s_d, "adam_s_cpu": s_c,
+          "adam_losses_card": res["steps_losses_card"],
+          "adam_losses_cpu": res["steps_losses_cpu"],
+          "adam_loss_rel_err": res["steps_loss_rel_err"],
+          "adam_rel_tol": TRAIN_STEPS_TOL,
+          "grad_s_card": res["grad_s_card"], "grad_s_cpu": res["grad_s_cpu"],
+          "adam_s_card": res["steps_s_card"],
+          "adam_s_cpu": res["steps_s_cpu"],
           "tol_reason": "the CPU tests' tolerances (tests/"
           "test_torch_train.py): float32 sums in another order"})
-    check(loss_err <= TRAIN_LOSS_TOL, f"train check: loss {loss_d} on the "
-          f"card, {loss_c} on the CPU")
-    check(worst <= TRAIN_LEAF_TOL, f"train check: grad leaf {worst_key} "
-          f"{worst} apart")
-    check(step_err <= TRAIN_STEPS_TOL, f"train check: Adam losses {l_d} "
-          f"against {l_c}")
-    del cpu_params
+    _check_card_vs_cpu("train check", res)
 
 
 def _replay_federated(fl, plan, steps: int, seed: int) -> list:
@@ -3806,11 +3813,409 @@ def _train_probe(torch, dev, state) -> None:
     _release(torch)
 
 
+def _train_family_work(cfg, params, B: int, S: int, opt: str) -> dict:
+    """What a training step must do at least.  Bytes: the params read by
+    the forward and by the backward, the grads written, the optimizer's
+    reads and writes (Adam: p, g, m, v read, p, m, v written, m and v
+    float32; SGD: p and g read, p written).  Operations: 6 flops a matmul
+    weight a row it multiplies (2 forward, 4 backward): B * S positions
+    for a layer's weights (the VLM's patches among them), B * (S - P)
+    token rows for the head (a tied embedding; an untied one is a
+    gather), B * P for patch_proj, the encoder's B * T_enc frames for its
+    weights and the cross-attention's K/V projections, an expert's
+    capacity rows of its buffer (every expert runs its whole buffer);
+    bf16 weights on the tensor cores, float32 ones (the MoE router) and
+    the bf16 ones the reference casts up first (RWKV's decay LoRA, Mamba's
+    dt projection) on the FFMA units; element-wise leaves none."""
+    from repro_torch.models import moe
+    P = cfg.n_prefix_patches
+    cap = moe.capacity(cfg.moe, B * S) if cfg.moe is not None else 0
+    upcast = {("rwkv", "wA"), ("rwkv", "wB"), ("mamba", "dt_proj_w")}
+    nbytes, bf16_flops, f32_flops = 0, 0.0, 0.0
+    for name, p in params.named_parameters():
+        e = p.element_size()
+        nbytes += p.numel() * (6 * e + 16 if opt == "adam" else 6 * e)
+        parts = name.split(".")
+        group, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
+        if p.ndim < 2 or leaf in ("conv_w", "u", "A_log"):
+            continue
+        if name == "embed" and not cfg.tie_embeddings:
+            continue
+        if name in ("embed", "lm_head"):
+            rows = B * (S - P)
+        elif name == "patch_proj":
+            rows = B * P
+        elif name.startswith("enc") or (group == "cross"
+                                        and leaf in ("wk", "wv")):
+            rows = B * cfg.encoder_seq
+        elif group == "moe" and leaf in ("w1", "w2", "w3"):
+            rows = cap
+        else:
+            rows = B * S
+        flops = 6.0 * p.numel() * rows
+        if p.element_size() == 4 or (group, leaf) in upcast:
+            f32_flops += flops
+        else:
+            bf16_flops += flops
+    return {"bytes": nbytes, "bf16_flops": bf16_flops,
+            "f32_flops": f32_flops}
+
+
+def _step0_aux(torch, cfg, params, batch) -> float | None:
+    """The MoE layers' load-balance values summed, at the first step's
+    weights and batch (the loss's aux part), or None without MoE."""
+    from repro_torch.models import transformer
+    if cfg.moe is None:
+        return None
+    with torch.no_grad():
+        x = transformer._inputs_embeds(cfg, params, batch)
+        _, aux = transformer._run_layers(cfg, params, x, 0, False, True)
+    return float(aux)
+
+
+def _train_family(torch, dev, state, arch, changes, opt, why) -> None:
+    """One family at its published widths in bf16: 10 steps of
+    launch.train.train, a rerun from the same seed, the step's work and
+    bound, peak bytes against the reckoned state."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_batch, train
+    from repro_torch.models import transformer
+    from repro_torch.models.model_zoo import build
+
+    cfg = _family_cfg(arch, changes)
+    steps, B, seed = TRAIN_FAM["steps"], TRAIN_FAM["batch"], TRAIN_FAM["seed"]
+    S = TRAIN_FAM_SEQ.get(arch, TRAIN_FAM["seq"])
+    runs = []
+    for run in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = build(cfg).init_params(seed=seed, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        if run == 0:
+            n_params = sum(p.numel() for p in params.parameters())
+            param_bytes = sum(p.numel() * p.element_size()
+                              for p in params.parameters())
+            work = _train_family_work(cfg, params, B, S, opt)
+            b0 = make_batch(cfg, B, S, seed)
+            aux0 = _step0_aux(torch, cfg, params, b0)
+            del b0
+        torch.cuda.reset_peak_memory_stats()
+        hist = {}
+        ops.reset_launch_counts()
+        params, losses, _ = train(cfg, steps=steps, batch=B, seq=S,
+                                  optimizer=opt, log_every=0, seed=seed,
+                                  device=dev, params=params, history=hist)
+        launches = dict(ops.LAUNCHES)
+        runs.append((losses, hist["step_s"], torch.cuda.max_memory_allocated(),
+                     init_s, init_peak, launches))
+        if run == 0 and arch == "jamba-1.5-large-398b":
+            state["jamba_chunked_grad"] = _jamba_chunked_grad(
+                torch, dev, cfg, params)
+        if run == 0:
+            profiled = _family_step_profile(torch, cfg, params, B, S, opt)
+        del params, hist
+        _release(torch)
+    (losses, step_s, peak, init_s, init_peak, launches), \
+        (losses2, step_s2, _, _, _, launches2) = runs
+    warm_ms = float(np.median(step_s[2:])) * 1e3
+    bound_ms, bound_by = bound(work["bytes"], work["f32_flops"],
+                               bf16_flops=work["bf16_flops"])
+    state_bytes = 2 * param_bytes + (8 * n_params if opt == "adam" else 0)
+    finite = all(math.isfinite(x) for x in losses)
+    same = losses == losses2
+    tokens = B * (S - cfg.n_prefix_patches)
+    line = {"phase": "train", "part": "families", "arch": cfg.name,
+            "layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype, "reduced": why,
+            "params": n_params, "param_bytes": param_bytes,
+            "optimizer": opt, "steps": steps, "batch": B, "seq": S,
+            "prefix_patches": cfg.n_prefix_patches,
+            "encoder_seq": cfg.encoder_seq, "init_s": init_s,
+            "losses": losses, "losses_finite": finite,
+            "first_step_ms": step_s[0] * 1e3, "warm_ms_per_step": warm_ms,
+            "warm_ms_per_step_rerun": float(np.median(step_s2[2:])) * 1e3,
+            "tokens_per_s": tokens / (warm_ms / 1e3),
+            "peak_bytes": peak, "init_peak_bytes": init_peak,
+            "reckoned_state_bytes": state_bytes,
+            "step_bytes": work["bytes"],
+            "step_bf16_flops": work["bf16_flops"],
+            "step_f32_flops": work["f32_flops"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "step_over_bound": warm_ms / bound_ms,
+            "rerun_losses_identical": same, **profiled, "aux_step0": aux0,
+            "aux_balanced": (None if cfg.moe is None else
+                             cfg.moe.aux_loss_weight * sum(
+                                 f == "moe" for _, f in
+                                 transformer.layer_specs(cfg))),
+            "launches": launches,
+            "source": "train() steps synced at their ends (history "
+            "step_s); median over steps 2..9; peak after init"}
+    if arch == "jamba-1.5-large-398b":
+        line.update(state.pop("jamba_chunked_grad"))
+    emit(line)
+    check(finite, f"train families {arch}: a loss is not finite: {losses}")
+    check(same, f"train families {arch}: the rerun's losses differ: "
+          f"{losses} against {losses2}")
+    check(not any(launches.values()) and not any(launches2.values()),
+          f"train families {arch}: a kernel launched on the training "
+          f"path: {launches}")
+    state.setdefault("train_families", {})[arch] = {
+        "warm_ms_per_step": warm_ms, "bound_ms": bound_ms}
+
+
+def _family_step_profile(torch, cfg, params, B: int, S: int,
+                         opt: str) -> dict:
+    """Where a warm step goes: one step (the gradient of train()'s loss,
+    then the update, from fresh optimizer state) after a warm-up step,
+    under torch.profiler (the device's ops only): device busy ms, its
+    idle share of the step, the top device ops.  Busy time is a lower
+    bound (the profiler can drop device records on the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim import optimizers
+
+    model = build(cfg)
+    named = dict(params.named_parameters())
+    init, update = optimizers.get(opt)
+    opt_state = init(named)
+
+    def step(i):
+        b = make_batch(cfg, B, S, 2000 + i)
+        model.loss_fn(params, b, remat=False).backward()
+        grads = {k: p.grad for k, p in named.items()}
+        for p in named.values():
+            p.grad = None
+        update(named, grads, opt_state, 1e-5)
+        del grads
+        torch.cuda.synchronize()
+
+    step(0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {evt.key: evt.device_time_total / 1e3
+               for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA}
+    del prof, opt_state
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"profiled_step_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if busy else None,
+            "top_device_ms": [[k[:80], t] for k, t in top]}
+
+
+def _jamba_chunked_grad(torch, dev, cfg, params) -> dict:
+    """One gradient of the full-width jamba cut at JAMBA_CHUNK_SEQ
+    positions, where the reference's rule takes the chunked Mamba scan
+    (its chunks recomputed in the backward): whether the loss and every
+    gradient are finite (F4: a measurement, not a check)."""
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.model_zoo import build
+
+    b = make_batch(cfg, TRAIN_FAM["batch"], JAMBA_CHUNK_SEQ,
+                   TRAIN_FAM["seed"])
+    params.requires_grad_(True)
+    t0 = time.perf_counter()
+    loss = build(cfg).loss_fn(params, b, remat=False)
+    loss.backward()
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(p.grad).all()) for p in params.parameters())
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    for p in params.parameters():
+        p.grad = None
+    return {"chunked_seq": JAMBA_CHUNK_SEQ,
+            "chunked_loss": float(loss.detach()),
+            "chunked_grad_finite": finite, "chunked_grad_s": sec}
+
+
+def _grads_card_vs_cpu(torch, dev, cfg, batch, opt=None, steps=0,
+                       seed=1) -> dict:
+    """A float32 model on the card and on the CPU from the same weights
+    (init on the CPU, `seed`): the loss and every gradient leaf (the card
+    with remat, the CPU without), then `steps` optimizer steps of
+    launch.train.train on both."""
+    import copy
+
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import build
+
+    model = build(cfg)
+    cpu_params = model.init_params(seed=seed, device="cpu")
+    out, grad_s = [], []
+    for where in (dev, "cpu"):
+        card = len(out) == 0
+        params = copy.deepcopy(cpu_params).to(where) if card else cpu_params
+        params.requires_grad_(True)
+        t0 = time.perf_counter()
+        loss = model.loss_fn(params, batch, remat=card)
+        loss.backward()
+        out.append((float(loss.detach()),
+                    {k: p.grad.cpu() for k, p in params.named_parameters()}))
+        grad_s.append(time.perf_counter() - t0)
+        params.requires_grad_(False)
+        for p in params.parameters():
+            p.grad = None
+        del params
+    (loss_d, g_d), (loss_c, g_c) = out
+    worst, worst_key = 0.0, None
+    for key, want in g_c.items():
+        err = float((g_d[key] - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        if not err <= worst:
+            worst, worst_key = err, key
+    res = {"loss_card": loss_d, "loss_cpu": loss_c,
+           "loss_rel_err": abs(loss_d - loss_c) / abs(loss_c),
+           "grad_leaves": len(g_c), "worst_grad_leaf_err": worst,
+           "worst_grad_leaf": worst_key, "grad_s_card": grad_s[0],
+           "grad_s_cpu": grad_s[1]}
+    del g_d, g_c, out
+    _release(torch)
+    if steps:
+        got, steps_s = [], []
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            _, losses, _ = train(cfg, steps=steps,
+                                 batch=batch["tokens"].shape[0],
+                                 seq=batch["tokens"].shape[1]
+                                 + cfg.n_prefix_patches,
+                                 optimizer=opt, log_every=0, seed=seed,
+                                 device=where,
+                                 params=copy.deepcopy(cpu_params))
+            got.append(losses)
+            steps_s.append(time.perf_counter() - t0)
+            _release(torch)
+        res.update(steps_losses_card=got[0], steps_losses_cpu=got[1],
+                   steps_s_card=steps_s[0], steps_s_cpu=steps_s[1],
+                   steps_loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                                          zip(*got)))
+    return res
+
+
+def _check_card_vs_cpu(what: str, res: dict) -> None:
+    check(res["loss_rel_err"] <= TRAIN_LOSS_TOL, f"{what}: loss "
+          f"{res['loss_card']} on the card, {res['loss_cpu']} on the CPU")
+    check(res["worst_grad_leaf_err"] <= TRAIN_LEAF_TOL, f"{what}: grad "
+          f"leaf {res['worst_grad_leaf']} {res['worst_grad_leaf_err']} "
+          "apart")
+    if "steps_loss_rel_err" in res:
+        check(res["steps_loss_rel_err"] <= TRAIN_STEPS_TOL, f"{what}: "
+              f"losses {res['steps_losses_card']} against "
+              f"{res['steps_losses_cpu']}")
+
+
+def _train_families_cpu(torch, dev, state) -> None:
+    """The six smoke variants in float32 card against CPU (loss, every
+    grad leaf, 3 steps of the family's optimizer); rwkv6 at full width, 2
+    layers, 128 positions; jamba's smoke variant at 128 positions."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.train import make_batch
+
+    C = TRAIN_FAM_CHECK
+    tol = {"loss_rel_tol": TRAIN_LOSS_TOL, "grad_leaf_tol": TRAIN_LEAF_TOL,
+           "steps_rel_tol": TRAIN_STEPS_TOL, "tol_reason": "the CPU tests' "
+           "tolerances (tests/test_torch_train_*.py): float32 sums in "
+           "another order"}
+    for arch, _, opt, _ in TRAIN_FAMILIES:
+        cfg = smoke_variant(get_config(arch))
+        b = make_batch(cfg, C["batch"], C["seq"], C["seed"])
+        t0 = time.perf_counter()
+        res = _grads_card_vs_cpu(torch, dev, cfg, b, opt, C["steps"],
+                                 C["seed"])
+        emit({"phase": "train", "part": "families_card_vs_cpu",
+              "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+              "batch": C["batch"], "seq": C["seq"], "optimizer": opt,
+              **res, **tol, "seconds": time.perf_counter() - t0})
+        _check_card_vs_cpu(f"train families {arch} smoke", res)
+    # rwkv6 at full width: two 64-token wkv chunks at its 32 heads
+    R = RWKV_FULL_CHECK
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"),
+                              n_layers=R["n_layers"], dtype="float32")
+    b = make_batch(cfg, R["batch"], R["seq"], C["seed"])
+    t0 = time.perf_counter()
+    res = _grads_card_vs_cpu(torch, dev, cfg, b)
+    emit({"phase": "train", "part": "families_card_vs_cpu",
+          "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "batch": R["batch"], "seq": R["seq"],
+          **res, **tol, "seconds": time.perf_counter() - t0})
+    _check_card_vs_cpu("train families rwkv6 full width", res)
+    # jamba's smoke variant at 128 positions: the chunked scan
+    cfg = smoke_variant(get_config("jamba-1.5-large-398b"))
+    b = make_batch(cfg, C["batch"], JAMBA_CHUNK_SEQ, C["seed"])
+    t0 = time.perf_counter()
+    res = _grads_card_vs_cpu(torch, dev, cfg, b, seed=C["seed"])
+    emit({"phase": "train", "part": "families_card_vs_cpu",
+          "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+          "batch": C["batch"], "seq": JAMBA_CHUNK_SEQ, **res, **tol,
+          "seconds": time.perf_counter() - t0})
+    _check_card_vs_cpu("train families jamba smoke at 128", res)
+
+
+def _train_families_federated(torch, dev, state) -> None:
+    """train(federated=True) on deepseek's smoke variant: t*, the loads,
+    sim_wall and each step's returned clients against the host replay of
+    the delay draws."""
+    from repro_torch.config import FLConfig
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.train import federated_plan, train
+    from repro_torch.models.model_zoo import build
+
+    F = FED_FAMILY
+    cfg = smoke_variant(get_config(F["arch"]))
+    fl = FLConfig(n_clients=F["clients"])
+    hist = {}
+    t0 = time.perf_counter()
+    _, losses, sim_wall = train(cfg, steps=F["steps"], batch=F["batch"],
+                                seq=F["seq"], federated=True, fl_cfg=fl,
+                                log_every=0, device=dev, history=hist)
+    run_s = time.perf_counter() - t0
+    n_param = sum(p.numel() for p in
+                  build(cfg).abstract_params().parameters())
+    plan = federated_plan(fl, n_param, F["batch"], F["seq"])
+    replay = _replay_federated(fl, plan, F["steps"], 0)
+    t_star = plan[1].t_star
+    same_plan = (hist["t_star"] == t_star
+                 and hist["loads"] == list(plan[1].loads))
+    same_returned = hist["returned"] == replay
+    wall_ok = sim_wall == F["steps"] * t_star
+    finite = all(math.isfinite(x) for x, r in zip(losses, replay) if r)
+    emit({"phase": "train", "part": "families_federated", **F,
+          "layers": cfg.n_layers, "dtype": cfg.dtype,
+          "params_counted": n_param, "t_star": t_star,
+          "loads": hist["loads"], "sim_wall": sim_wall,
+          "sim_wall_equals_replay": wall_ok,
+          "plan_equals_replay": same_plan,
+          "returned_equal_replay": same_returned,
+          "returned": [len(r) for r in replay], "losses": losses,
+          "losses_finite": finite, "run_s": run_s,
+          "warm_ms_per_step": float(np.median(hist["step_s"][2:])) * 1e3})
+    check(same_plan and same_returned and wall_ok, "train families "
+          "federated: the run differs from the host replay of its delay "
+          "draws")
+    check(finite, f"train families federated: a loss is not finite: "
+          f"{losses}")
+
+
+def _train_families(torch, dev, state) -> None:
+    """The model zoo's six other families: trained at their published
+    widths in bf16; the card against the CPU; federated deepseek."""
+    for arch, changes, opt, why in TRAIN_FAMILIES:
+        _train_family(torch, dev, state, arch, changes, opt, why)
+    _train_families_cpu(torch, dev, state)
+    _train_families_federated(torch, dev, state)
+
+
 def train_path(torch, dev, state) -> None:
     """The model zoo's training path on the card (after the serve
     phases): full-width Adam, the 2-layer card/CPU check, federated
-    deadline aggregation, the coded probe."""
-    for part in (_train_full, _train_check, _train_federated, _train_probe):
+    deadline aggregation, the coded probe, the six other families."""
+    for part in (_train_full, _train_check, _train_federated, _train_probe,
+                 _train_families):
         t0 = time.perf_counter()
         part(torch, dev, state)
         emit({"phase": "train", "part": part.__name__.lstrip("_"),

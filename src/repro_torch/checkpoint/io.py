@@ -79,7 +79,9 @@ def _atomic_savez(path: str, flat: dict) -> None:
 
 
 def _is_model(tree) -> bool:
-    return isinstance(tree, torch.nn.Module) and hasattr(tree, "layers")
+    """A model zoo model: a `Transformer` or an `EncDec` (a module with
+    its config)."""
+    return isinstance(tree, torch.nn.Module) and hasattr(tree, "cfg")
 
 
 def _path_leaves(tree, prefix: tuple = ()):
@@ -164,8 +166,8 @@ def restore(path: str, like_tree, device=None):
     reference leaf must exist in the file with a matching shape — any
     divergence raises `ValueError` naming the offending key (a checkpoint
     from a different run shape should fail loudly, not load partially).
-    A `Transformer` like tree gives a new `Transformer` in its config's
-    dtype; other leaves come back in their like leaf's dtype, on its
+    A model like tree (`Transformer`, `EncDec`) gives a new model of its
+    kind, each leaf in its dtype in the model; other leaves come back in their like leaf's dtype, on its
     device.  Leaves on the ``meta`` device (``abstract_params``) land on
     `device`, the GPU unless the caller passes another.
     """

@@ -1,5 +1,5 @@
 """Training driver of the model zoo (the counterpart of
-``repro.launch.train``), dense family.
+``repro.launch.train``), every family.
 
 Two modes:
   * plain      — LM training on packed synthetic tokens (`make_batch`);
@@ -17,11 +17,10 @@ the batches) are NumPy copies of the reference's and match it bit for bit;
 the gradients are plain autograd on the experiment's device.  The port's
 initial weights come from a ``torch.Generator`` (other numbers than the
 reference's ``jax.random``): `train(..., params=...)` takes carried ones
-(``repro_torch.carry.model_params_from_reference``).  The families whose
-training is not ported yet (MoE, MLA, RWKV, Mamba, enc-dec, VLM prefix;
-the port serves them) raise ``NotImplementedError``.
+(``repro_torch.carry.model_params_from_reference``).  A VLM's `seq`
+counts its patch positions (internvl2: seq > 256 at full width).
 
-    PYTHONPATH=src python -m repro_torch.launch.train [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train [--arch ARCH] [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --full-config
 """
 from __future__ import annotations
@@ -38,7 +37,6 @@ from repro_torch.core import load_allocation
 from repro_torch.core.delay_model import mec_network, packet_bits, scale_tau
 from repro_torch.data.pipeline import PackedLMDataset, PipelineConfig
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.models import transformer
 from repro_torch.models.common import dtype_of
 from repro_torch.models.model_zoo import build
 from repro_torch.optim import optimizers
@@ -90,13 +88,13 @@ def train(cfg, steps: int = 20, batch: int = 4, seq: int = 64,
     """Returns (params, losses, wall_clock_sim).
 
     `device` defaults to the GPU; "cpu" runs there.  `params`: initial
-    weights (a `Transformer`, moved to `device` and trained in place);
+    weights (a `Transformer` or an `EncDec`, moved to `device` and trained
+    in place);
     default the port's seeded draw.  A step where no client returns before
     t* (federated) logs a NaN loss and updates nothing.  `history`, where
     given, receives ``step_s`` (each step's seconds, the device synced at
     its end) and, federated, ``t_star``, ``loads``, ``p_ret`` and
     ``returned`` (each step's returned clients, in client order)."""
-    transformer.check_trainable(cfg)
     dev = resolve_device(device)
     model = build(cfg)
     if params is None:

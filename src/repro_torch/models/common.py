@@ -23,20 +23,40 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 # ----------------------------------------------------------------- init utils
-def dense_init(gen: torch.Generator, shape, dtype, scale: float | None = None):
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device (which
+    has none): the initializers given it draw nothing and return tensors
+    of their shapes and dtypes without storage."""
+
+    device = torch.device("meta")
+
+
+def generator(seed: int, device=None):
+    """A ``torch.Generator`` on `device` (default the CPU) seeded with
+    `seed`, or a `MetaGenerator` where `device` is ``meta``."""
+    dev = torch.device(device or "cpu")
+    if dev.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _randn(gen, shape):
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def dense_init(gen, shape, dtype, scale: float | None = None):
     """Normal draws scaled by 1/sqrt(shape[0]) (the reference's fan-in,
     which is shape[0] for 3-d weights too), on the generator's device."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * s).to(dtype)
+    return (_randn(gen, shape) * s).to(dtype)
 
 
-def embed_init(gen: torch.Generator, shape, dtype):
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * 0.02).to(dtype)
+def embed_init(gen, shape, dtype):
+    return (_randn(gen, shape) * 0.02).to(dtype)
 
 
 def frozen_params(tensors: dict) -> nn.ParameterDict:

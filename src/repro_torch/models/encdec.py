@@ -1,4 +1,4 @@
-"""Whisper-style encoder-decoder, serving (the counterpart of
+"""Whisper-style encoder-decoder, training and serving (the counterpart of
 ``repro.models.encdec``).  The conv/mel frontend is a stub: `frames` are
 precomputed frame embeddings (B, T_enc, D).
 
@@ -17,20 +17,24 @@ Param names and layouts are the reference's: ``embed`` (V, D),
 encoder layers ``ln1``, ``ln2``, ``attn.{wq, wk, wv, wo}``,
 ``ffn.{w1, w2}``; decoder layers ``ln1``, ``ln_x``, ``ln2``,
 ``self.{...}`` (the attribute ``self_attn`` here), ``cross.{...}``,
-``ffn``.  Training (``loss_fn``) is not ported yet and raises.
+``ffn``.  Training (`loss_fn`) is plain autograd through the encoder and
+the decoder, the decoder layers recomputed in the backward with `remat`
+(the reference's ``jax.checkpoint`` over its decoder scan); `prefill`
+and `decode_step` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.models import transformer
 from repro_torch.models.attention import _flash, _heads, _out
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
-                                       frozen_params, rms_norm,
-                                       sinusoidal_positions)
+                                       frozen_params, generator, rms_norm,
+                                       sinusoidal_positions,
+                                       softmax_cross_entropy)
 
 
 def _init_qkvo(gen, cfg, dtype) -> dict:
@@ -108,9 +112,10 @@ class EncDec(nn.Module):
 
 def init_params(cfg, seed: int = 0, device=None) -> EncDec:
     """Random weights from a ``torch.Generator`` seeded with `seed` on
-    `device` (the reference's initializers and scales)."""
+    `device` (the reference's initializers and scales); on the ``meta``
+    device shapes and dtypes without storage."""
     dtype = dtype_of(cfg)
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = generator(seed, device)
     D = cfg.d_model
 
     def ones():
@@ -128,24 +133,19 @@ def init_params(cfg, seed: int = 0, device=None) -> EncDec:
     return EncDec(cfg, embed, enc_in_proj, ones(), ones(), lm_head, enc, dec)
 
 
-def abstract_params(cfg):
-    """Raises: training this family is not ported yet."""
-    transformer.check_trainable(cfg)
-
-
-def loss_fn(cfg, params, batch, window: int = 0, remat: bool = True,
-            chunked: bool = True):
-    """Raises: training this family is not ported yet."""
-    transformer.check_trainable(cfg)
+def abstract_params(cfg) -> EncDec:
+    """The model's parameters on the ``meta`` device (the counterpart of
+    the reference's ``eval_shape`` tree), from `init_params` itself."""
+    return init_params(cfg, device="meta")
 
 
 def _qkv(p, x):
     return _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
 
 
-@torch.no_grad()
 def encode(cfg, params, frames):
-    """frames: (B, T_enc, D) stub embeddings -> (B, T_enc, D)."""
+    """frames: (B, T_enc, D) stub embeddings -> (B, T_enc, D), under
+    autograd where the caller has gradients on."""
     B, T, D = frames.shape
     dev = params.embed.device
     x = frames.to(device=dev, dtype=dtype_of(cfg)) @ params.enc_in_proj
@@ -178,25 +178,28 @@ def init_cache(cfg, batch: int, max_seq: int, window: int = 0,
 
 def dec_layer(cfg, layer, x, enc_out, cache, *, positions=None, pos=None,
               window: int = 0):
-    """One decoder layer: prefill with `positions` (S,) (fills `cache`,
+    """One decoder layer: train with `positions` (S,) and no cache (the
+    cross K/V from `enc_out`), prefill with `positions` (fills `cache`,
     the cross K/V from `enc_out`), or decode with int `pos` (the cross K/V
     from the cache).  Returns x."""
     p = layer.self_attn
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     q, k, v = _qkv(p, h)
-    slots = cache["k"].shape[1]
     if positions is not None:
         o = _flash(q, k, v, positions, positions, window)
-        S = x.shape[1]
-        if slots >= S:
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
-            cache["pos"][:S] = positions
-        else:                                 # rolling window: keep the tail
-            cache["k"].copy_(k[:, S - slots:])
-            cache["v"].copy_(v[:, S - slots:])
-            cache["pos"].copy_(positions[S - slots:])
+        if cache is not None:
+            S = x.shape[1]
+            slots = cache["k"].shape[1]
+            if slots >= S:
+                cache["k"][:, :S] = k
+                cache["v"][:, :S] = v
+                cache["pos"][:S] = positions
+            else:                             # rolling window: keep the tail
+                cache["k"].copy_(k[:, S - slots:])
+                cache["v"].copy_(v[:, S - slots:])
+                cache["pos"].copy_(positions[S - slots:])
     else:
+        slots = cache["k"].shape[1]
         slot = pos % slots if window > 0 else min(pos, slots - 1)
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]
@@ -209,10 +212,13 @@ def dec_layer(cfg, layer, x, enc_out, cache, *, positions=None, pos=None,
     c = layer.cross
     h = rms_norm(x, layer.ln_x, cfg.norm_eps)
     qx = _heads(h, c["wq"])
-    if positions is not None:
-        cache["xk"].copy_(_heads(enc_out, c["wk"]))
-        cache["xv"].copy_(_heads(enc_out, c["wv"]))
-    kx, vx = cache["xk"], cache["xv"]
+    if cache is None:
+        kx, vx = _heads(enc_out, c["wk"]), _heads(enc_out, c["wv"])
+    else:
+        if positions is not None:
+            cache["xk"].copy_(_heads(enc_out, c["wk"]))
+            cache["xv"].copy_(_heads(enc_out, c["wv"]))
+        kx, vx = cache["xk"], cache["xv"]
     t_pos = torch.arange(kx.shape[1], dtype=torch.int32, device=x.device)
     q_pos = torch.zeros((qx.shape[1],), dtype=torch.int32, device=x.device)
     ox = _flash(qx, kx, vx, q_pos, t_pos, 0, causal=False)
@@ -220,6 +226,38 @@ def dec_layer(cfg, layer, x, enc_out, cache, *, positions=None, pos=None,
 
     h = rms_norm(x, layer.ln2, cfg.norm_eps)
     return x + _ffn(layer.ffn, h)
+
+
+def _dec_inputs(cfg, params, tokens):
+    """Token embeddings plus sinusoidal positions, and the positions."""
+    dev = params.embed.device
+    x = F.embedding(tokens.long().to(dev), params.embed)
+    S = x.shape[1]
+    x = x + sinusoidal_positions(S, cfg.d_model, dev).to(x.dtype)[None]
+    return x, torch.arange(S, dtype=torch.int32, device=dev)
+
+
+def loss_fn(cfg, params, batch, window: int = 0, remat: bool = True,
+            chunked: bool = True):
+    """batch: frames (B, T_enc, D), tokens (B, S), labels (B, S), on any
+    device.  The mean cross-entropy over the labels >= 0 (float32; no
+    auxiliary loss); with `remat` each decoder layer is recomputed in the
+    backward.  `chunked` is the decoder-only models' switch, unused."""
+    enc_out = encode(cfg, params, batch["frames"])
+    x, positions = _dec_inputs(cfg, params, batch["tokens"])
+    for layer in params.dec:
+        if remat:
+            x = checkpoint(dec_layer, cfg, layer, x, enc_out, None,
+                           positions=positions, window=window,
+                           use_reentrant=False)
+        else:
+            x = dec_layer(cfg, layer, x, enc_out, None, positions=positions,
+                          window=window)
+    x = rms_norm(x, params.dec_norm, cfg.norm_eps)
+    logits = x @ params.lm_head
+    labels = batch["labels"].to(x.device)
+    mask = (labels >= 0).float()
+    return softmax_cross_entropy(logits, torch.clamp(labels, min=0), mask)
 
 
 def pos_embed_at(cfg, pos: int, device=None):
@@ -239,13 +277,10 @@ def prefill(cfg, params, batch, window: int = 0,
     logits (B, V), cache); the cache has `cache_len` self-attention slots
     (default S), those past S at position -1."""
     enc_out = encode(cfg, params, batch["frames"])
-    dev = params.embed.device
-    x = F.embedding(batch["tokens"].long().to(dev), params.embed)
+    x, positions = _dec_inputs(cfg, params, batch["tokens"])
     B, S = x.shape[:2]
-    x = x + sinusoidal_positions(S, cfg.d_model, dev).to(x.dtype)[None]
-    positions = torch.arange(S, dtype=torch.int32, device=dev)
     cache = init_cache(cfg, B, S if cache_len is None else cache_len,
-                       window, dev)
+                       window, x.device)
     for layer, c in zip(params.dec, cache):
         x = dec_layer(cfg, layer, x, enc_out, c, positions=positions,
                       window=window)

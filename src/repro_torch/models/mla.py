@@ -1,5 +1,5 @@
-"""DeepSeek-V2 Multi-head Latent Attention, prefill and decode (the
-counterpart of ``repro.models.mla``).
+"""DeepSeek-V2 Multi-head Latent Attention, training, prefill and decode
+(the counterpart of ``repro.models.mla``).
 
 The cache holds the compressed latent c (B, slots, kv_lora_rank), the
 shared rope key kpe (B, slots, qk_rope_head_dim) and the slot positions
@@ -9,7 +9,9 @@ parts, hd = qk_nope + qk_rope) and V (hd_v = v_head_dim) from the whole
 latent cache each step, then attends with the ``gqa_decode`` kernel, one
 KV head a query head (G = 1, hd != hd_v).  Prefill attention is the
 plain-PyTorch ``attention._flash``, as the reference computes it outside
-any Pallas kernel.
+any Pallas kernel; so is training attention (`mla_train`), over K/V
+decompressed from the latent with as many KV heads as query heads,
+recomputed in the backward as ``attention.attn_train``'s.
 
 Layouts are the reference's: wq (D, H, qk), w_dkv (D, lora + rope),
 kv_norm (lora,), w_uk (lora, H, nope), w_uv (lora, H, v), wo (H, v, D).
@@ -17,6 +19,7 @@ kv_norm (lora,), w_uk (lora, H, nope), w_uv (lora, H, v), wo (H, v, D).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.attention import _flash, _heads, _out
@@ -62,6 +65,18 @@ def _decompress(p, c, k_pe, cfg):
     v = _heads(c, p["w_uv"])
     k_pe_b = k_pe[:, :, None, :].expand(*k_nope.shape[:3], k_pe.shape[-1])
     return torch.cat([k_nope, k_pe_b], dim=-1), v
+
+
+def mla_train(p, x, positions, cfg, window: int = 0, freqs=None):
+    """Full-sequence causal MLA.  x: (B, S, D), positions: (S,) int.
+    Returns out (B, S, D)."""
+    q = _q_proj(p, x, positions[None, :], cfg, freqs)
+    c, k_pe = _latent(p, x, positions[None, :], cfg, freqs)
+    k, v = _decompress(p, c, k_pe, cfg)
+    win = window if window else cfg.swa_window
+    out = checkpoint(_flash, q, k, v, positions, positions, win,
+                     use_reentrant=False)                  # kv heads == H
+    return _out(p, out)
 
 
 def init_mla_cache(cfg, batch: int, max_seq: int, dtype, window: int = 0,

@@ -1,7 +1,7 @@
 """Uniform Model facade over the decoder-only stack and the
 encoder-decoder stack (the counterpart of ``repro.models.model_zoo``).
-Every family serves (`prefill`, `decode_step`); training (`loss_fn`,
-`abstract_params`) raises NotImplementedError but for the dense family."""
+Every family serves (`prefill`, `decode_step`) and trains (`loss_fn`,
+`abstract_params`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,7 +15,7 @@ from repro_torch.models import encdec, transformer
 class Model:
     cfg: Any
     init_params: Callable      # (seed=0, device=None) -> Transformer/EncDec
-    abstract_params: Callable  # () -> Transformer on the meta device
+    abstract_params: Callable  # () -> Transformer/EncDec on meta
     loss_fn: Callable          # (params, batch, window=0, remat=True) -> loss
     prefill: Callable          # (params, batch, window=0, cache_len=None)
     decode_step: Callable      # (params, cache, tokens, pos, window=0)

@@ -8,6 +8,13 @@ a multiple of 128); `_ssm_chunked` takes 128-token chunks in turn, each
 as cumulative sums of log decays (prefill at S % 128 == 0).  They agree
 to float32 rounding; the choice between them is the reference's rule
 (`mamba_block`).  Plain PyTorch in float32, as the reference's XLA ops.
+Under autograd each chunk of `_ssm_chunked` is recomputed in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+chunk body), so a layer keeps the chunks' inputs, not their
+(B, C, d_inner, N) blocks.  The chunked form keeps the reference's
+overflow: exp(-cum) passes float32's range where the cumulative log decay
+of a chunk passes about -88 (jamba at full width, ROADMAP F4), in
+training as in prefill.
 
 A layer's state is {"conv": (B, K - 1, d_inner) in the model's dtype, the
 causal convolution's last K - 1 inputs, "h": (B, d_inner, N) float32},
@@ -18,6 +25,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import dense_init
 
@@ -82,6 +90,16 @@ def _ssm_scan(u, dt, B_t, C_t, A, D, h0):
     return torch.stack(ys, dim=1) + u * D, h
 
 
+def _ssm_chunk(h, u_c, dt_c, b_c, c_c, A):
+    """One chunk of `_ssm_chunked`: (h at its last token, y (B, C, din))."""
+    la = dt_c[..., None] * A                               # (B, C, din, N)
+    i_c = (dt_c * u_c)[..., None] * b_c[:, :, None, :]
+    cum = torch.cumsum(la, dim=1)
+    acc = torch.cumsum(i_c * torch.exp(-cum), dim=1)
+    h_all = torch.exp(cum) * (h[:, None] + acc)
+    return h_all[:, -1], (h_all @ c_c[..., None])[..., 0]
+
+
 def _ssm_chunked(u, dt, B_t, C_t, A, D, h0, chunk: int = 128):
     """The chunk-blocked scan: chunks in turn, each as
 
@@ -89,21 +107,22 @@ def _ssm_chunked(u, dt, B_t, C_t, A, D, h0, chunk: int = 128):
       cum_j = sum_{t<=j} dt_t A,
 
     its (C, din, N) blocks built inside the chunk from the (C, din) and
-    (C, N) projections."""
+    (C, N) projections; under autograd each chunk is recomputed in the
+    backward."""
     B, S, din = u.shape
     assert S % chunk == 0
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (u, dt, B_t, C_t, A, h0))
     h = h0
     ys = []
     for c0 in range(0, S, chunk):
-        u_c, dt_c = u[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
-        b_c, c_c = B_t[:, c0:c0 + chunk], C_t[:, c0:c0 + chunk]
-        la = dt_c[..., None] * A                           # (B, C, din, N)
-        i_c = (dt_c * u_c)[..., None] * b_c[:, :, None, :]
-        cum = torch.cumsum(la, dim=1)
-        acc = torch.cumsum(i_c * torch.exp(-cum), dim=1)
-        h_all = torch.exp(cum) * (h[:, None] + acc)
-        ys.append((h_all @ c_c[..., None])[..., 0])
-        h = h_all[:, -1]
+        args = (h, u[:, c0:c0 + chunk], dt[:, c0:c0 + chunk],
+                B_t[:, c0:c0 + chunk], C_t[:, c0:c0 + chunk], A)
+        if remat:
+            h, y = checkpoint(_ssm_chunk, *args, use_reentrant=False)
+        else:
+            h, y = _ssm_chunk(*args)
+        ys.append(y)
     return torch.cat(ys, dim=1) + u * D, h
 
 

@@ -11,12 +11,16 @@ multiple of 64); `wkv_chunked` takes 64-token chunks in turn, each as
 products with cumulative-decay rescaling (prefill at S % 64 == 0).  The
 two agree to float32 rounding, not bit for bit, so the choice between them
 is the reference's rule (`rwkv_mix`).  Both run in float32 and are plain
-PyTorch: the reference computes them with XLA ops, no Pallas kernel.
+PyTorch, under autograd too: the reference computes them with XLA ops, no
+Pallas kernel.  `wkv_chunked` clamps w and A_j where the reference takes
+``jnp.maximum``; the two differ in gradient only at an exact tie with the
+floor (1e-12, 1e-30), which decays in (0, 1) do not reach.
 
 A layer's state is {"x_prev_mix": (B, D), "x_prev_ffn": (B, D) in the
 model's dtype, "wkv": (B, H, hs, hs) float32}: the last normed input of
 the token mix and of the channel mix, and the recurrence's S; prefill and
-decode replace its entries in place.  ``w0`` and ``u`` are float32 leaves
+decode replace its entries in place (training starts each layer from a
+zero state of its own, ``transformer.Layer``).  ``w0`` and ``u`` are float32 leaves
 in a bf16 model, as in the reference.
 """
 from __future__ import annotations

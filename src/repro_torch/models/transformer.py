@@ -1,6 +1,6 @@
-"""Decoder-only model: serving (prefill, decode) of every decoder family
-(dense GQA, MoE, MLA, RWKV-6, Mamba hybrid, VLM prefix) and training
-(`loss_fn`, `hidden_states`) of the dense one (the counterparts of
+"""Decoder-only model: serving (prefill, decode) and training (`loss_fn`,
+`hidden_states`) of every decoder family (dense GQA, MoE, MLA, RWKV-6,
+Mamba hybrid, VLM prefix; the counterparts of
 ``repro.models.transformer``).
 
 Layers come in the reference's *stages* (`stages`): a stage is a pattern
@@ -21,11 +21,13 @@ an MLA latent cache, or a recurrent state, each written in place.
 The parameters are built frozen (``requires_grad=False``); the training
 entry points (``repro_torch.launch.train.train``) switch gradients on.
 `prefill` and `decode_step` run under ``torch.no_grad`` either way.
-`loss_fn` is plain autograd: the reference trains through XLA ops, no
-Pallas kernel and no custom gradient.  Training a family other than the
-dense one (its MoE aux loss, its scans under autograd) is not ported yet:
-`loss_fn`, `hidden_states` and `abstract_params` raise
-``NotImplementedError`` naming the family (`check_trainable`).
+`loss_fn` is plain autograd: the reference trains through XLA ops (its
+``_flash``, the scans, the MoE einsums), no Pallas kernel and no custom
+gradient.  In the "train" mode (no cache) a layer's recurrent mixer
+starts from a zero state made inside the layer's forward, so that a
+recompute (``remat``) starts from its own; the MoE layers' load-balance
+values are summed over the layers and added to the cross-entropy, as the
+reference's ``loss + aux``.
 """
 from __future__ import annotations
 
@@ -36,8 +38,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mla, moe, ssm_mamba, ssm_rwkv
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
-                                       frozen_params, rms_norm, rope_freqs,
-                                       softmax_cross_entropy, swiglu)
+                                       frozen_params, generator, rms_norm,
+                                       rope_freqs, softmax_cross_entropy,
+                                       swiglu)
 
 
 def stages(cfg) -> list[tuple[tuple[tuple[str, str], ...], int]]:
@@ -61,8 +64,6 @@ def stages(cfg) -> list[tuple[tuple[tuple[str, str], ...], int]]:
     return [((("attn", "dense"),), L)]              # dense / vlm
 
 
-_FAMILIES = {"rwkv": "RWKV", "rwkv_ffn": "RWKV", "mamba": "Mamba",
-             "mla": "MLA", "moe": "MoE"}
 # the reference's param key of each layer part
 FFN_KEYS = {"dense": "ffn", "moe": "moe", "rwkv_ffn": "ffn"}
 # the float32 leaves of a bf16 model: {(group key, leaf name)}
@@ -83,27 +84,6 @@ def layer_specs(cfg) -> list[tuple[str, str]]:
     its count of times."""
     return [spec for pattern, count in stages(cfg) for _ in range(count)
             for spec in pattern]
-
-
-def check_trainable(cfg) -> None:
-    """Raise NotImplementedError for a family whose training is not ported
-    yet (every family but the dense one); serving takes every family."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: training the encoder-decoder family is not "
-            "ported yet (the port serves it)")
-    if cfg.n_prefix_patches:
-        raise NotImplementedError(
-            f"{cfg.name}: training with the VLM patch prefix is not ported "
-            "yet (the port serves it)")
-    for pattern, _ in stages(cfg):
-        for spec in pattern:
-            missing = sorted({_FAMILIES[s] for s in spec if s in _FAMILIES})
-            if missing:
-                raise NotImplementedError(
-                    f"{cfg.name}: training the {', '.join(missing)} family "
-                    "is not ported yet (the port serves it; it trains "
-                    "dense attention + dense FFN layers)")
 
 
 class Layer(nn.Module):
@@ -131,24 +111,38 @@ class Layer(nn.Module):
 
     def forward(self, x, cfg, cache, freqs, *, positions=None, pos=None,
                 window: int = 0, chunked: bool = True):
-        """Train (no cache; attention + dense FFN only) or prefill with
-        `positions` (S,), or decode with int `pos`; returns x (the cache
-        or the recurrent state is updated in place)."""
+        """Train (no cache; `positions` (S,)), prefill (a cache and
+        `positions`) or decode (a cache and int `pos`).  Returns (x, aux):
+        aux the MoE FFN's load-balance value (a float32 scalar), None for
+        the other FFNs.  In train mode a recurrent mixer starts from a
+        zero state made here (the reference's fresh state), so a
+        recompute of the layer makes its own; otherwise the cache or the
+        recurrent state is updated in place."""
         mixer, ffn = self.spec
         p = getattr(self, self.mixer_key)
+        train = cache is None
         prefill = positions is not None
+        if train and mixer == "rwkv":
+            cache = ssm_rwkv.init_rwkv_state(cfg, x.shape[0], x.dtype,
+                                             x.device)
+        elif train and mixer == "mamba":
+            cache = ssm_mamba.init_mamba_state(cfg, x.shape[0], x.dtype,
+                                               x.device)
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        if cache is None:
-            out = attention.attn_train(p, h, positions, cfg, window, freqs)
-        elif mixer == "attn":
-            if prefill:
+        if mixer == "attn":
+            if train:
+                out = attention.attn_train(p, h, positions, cfg, window,
+                                           freqs)
+            elif prefill:
                 out, _ = attention.attn_prefill(p, h, positions, cfg, cache,
                                                 window, freqs)
             else:
                 out, _ = attention.attn_decode(p, h, pos, cfg, cache, window,
                                                freqs)
         elif mixer == "mla":
-            if prefill:
+            if train:
+                out = mla.mla_train(p, h, positions, cfg, window, freqs)
+            elif prefill:
                 out, _ = mla.mla_prefill(p, h, positions, cfg, cache, window,
                                          freqs)
             else:
@@ -162,14 +156,15 @@ class Layer(nn.Module):
         x = x + out
         q = getattr(self, self.ffn_key)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
+        aux = None
         if ffn == "dense":
             out = swiglu(h, q["w1"], q["w3"], q["w2"])
         elif ffn == "moe":
-            out, _ = moe.moe_ffn(q, h, cfg)
+            out, aux = moe.moe_ffn(q, h, cfg)
         else:
             out, cache["x_prev_ffn"] = ssm_rwkv.rwkv_ffn(
                 q, h, cache["x_prev_ffn"], cfg)
-        return x + out
+        return x + out, aux
 
 
 def _rope_dim(cfg) -> int:
@@ -229,9 +224,10 @@ def _init_layer(gen, spec, cfg, dtype) -> Layer:
 def init_params(cfg, seed: int = 0, device=None) -> Transformer:
     """Random weights from a ``torch.Generator`` seeded with `seed` on
     `device` (the reference's initializers, scales and leaf dtypes; other
-    numbers than its ``jax.random`` draws)."""
+    numbers than its ``jax.random`` draws).  On the ``meta`` device the
+    weights have shapes and dtypes and no storage (`abstract_params`)."""
     dtype = dtype_of(cfg)
-    gen = torch.Generator(device=device or "cpu").manual_seed(seed)
+    gen = generator(seed, device)
     V, D = cfg.vocab_padded, cfg.d_model
     embed = embed_init(gen, (V, D), dtype)
     lm_head = None if cfg.tie_embeddings else dense_init(gen, (D, V), dtype)
@@ -244,27 +240,10 @@ def init_params(cfg, seed: int = 0, device=None) -> Transformer:
 
 
 def abstract_params(cfg) -> Transformer:
-    """The model's parameters on the ``meta`` device: shapes and dtypes,
-    no storage (the counterpart of the reference's ``eval_shape`` tree),
-    for training checkpoints: the dense family only."""
-    check_trainable(cfg)
-    dtype = dtype_of(cfg)
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=dtype, device="meta")
-
-    V, D, Fd = cfg.vocab_padded, cfg.d_model, cfg.d_ff
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    layers = []
-    for spec in layer_specs(cfg):
-        attn = {"wq": empty(D, H, hd), "wk": empty(D, K, hd),
-                "wv": empty(D, K, hd), "wo": empty(H, hd, D)}
-        if cfg.qk_norm:
-            attn["qn"], attn["kn"] = empty(hd), empty(hd)
-        ffn = {"w1": empty(D, Fd), "w3": empty(D, Fd), "w2": empty(Fd, D)}
-        layers.append(Layer(spec, empty(D), empty(D), attn, ffn))
-    lm_head = None if cfg.tie_embeddings else empty(D, V)
-    return Transformer(cfg, empty(V, D), empty(D), lm_head, layers)
+    """The model's parameters on the ``meta`` device: shapes and leaf
+    dtypes, no storage (the counterpart of the reference's ``eval_shape``
+    tree), from `init_params` itself."""
+    return init_params(cfg, device="meta")
 
 
 def init_cache(cfg, batch: int, max_seq: int, window: int = 0,
@@ -317,45 +296,54 @@ def _logits(cfg, params, x):
     return logits
 
 
-def _run_layers(cfg, params, x, window: int, remat: bool):
+def _run_layers(cfg, params, x, window: int, remat: bool, chunked: bool):
     """Every layer over the whole sequence, no cache (the "train" mode);
-    with `remat` each layer is recomputed in the backward."""
+    with `remat` each layer is recomputed in the backward.  Returns (x,
+    the MoE layers' load-balance values summed in layer order, float32)."""
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
         if remat:
-            x = checkpoint(layer, x, cfg, None, params.rope_freqs,
-                           positions=positions, window=window,
-                           use_reentrant=False)
+            x, a = checkpoint(layer, x, cfg, None, params.rope_freqs,
+                              positions=positions, window=window,
+                              chunked=chunked, use_reentrant=False)
         else:
-            x = layer(x, cfg, None, params.rope_freqs, positions=positions,
-                      window=window)
-    return x
+            x, a = layer(x, cfg, None, params.rope_freqs,
+                         positions=positions, window=window, chunked=chunked)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def loss_fn(cfg, params, batch, window: int = 0, remat: bool = True,
             chunked: bool = True):
-    """batch: tokens (B, S), labels (B, S), on any device.
+    """batch: tokens (B, S), labels (B, S) [, patch_embeds (B, P, D)], on
+    any device.
 
-    Labels are next-token targets aligned with the token positions; label
-    -100 masks a position out.  The mean cross-entropy over the unmasked
-    positions (float32); a dense model has no auxiliary loss.  `chunked`
-    is the reference's switch for the recurrent families, unused here."""
-    check_trainable(cfg)
+    Labels are next-token targets aligned with the *token* positions
+    (the VLM prefix's P positions are cut before the logits); label -100
+    masks a position out.  The mean cross-entropy over the unmasked
+    positions (float32) plus the MoE layers' load-balance values.
+    `chunked` lets the recurrent mixers take their chunked forms where
+    the reference's would."""
     x = _inputs_embeds(cfg, params, batch)
-    x = _run_layers(cfg, params, x, window, remat)
+    x, aux = _run_layers(cfg, params, x, window, remat, chunked)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    if cfg.n_prefix_patches:
+        x = x[:, cfg.n_prefix_patches:, :]
     logits = _logits(cfg, params, x)
     labels = batch["labels"].to(x.device)
     mask = (labels >= 0).float()
-    return softmax_cross_entropy(logits, torch.clamp(labels, min=0), mask)
+    loss = softmax_cross_entropy(logits, torch.clamp(labels, min=0), mask)
+    return loss + aux
 
 
 def hidden_states(cfg, params, batch, window: int = 0, chunked: bool = True):
-    """Final-norm hidden states (B, S, D): the feature extractor of the
-    coded linear-probe head (``repro_torch.core.coded_probe``)."""
-    check_trainable(cfg)
+    """Final-norm hidden states (B, S, D), the VLM prefix's positions
+    kept: the feature extractor of the coded linear-probe head
+    (``repro_torch.core.coded_probe``)."""
     x = _inputs_embeds(cfg, params, batch)
-    x = _run_layers(cfg, params, x, window, remat=False)
+    x, _ = _run_layers(cfg, params, x, window, remat=False, chunked=chunked)
     return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -376,8 +364,8 @@ def prefill(cfg, params, batch, window: int = 0, cache_len: int | None = None,
     cache = init_cache(cfg, B, S if cache_len is None else cache_len, window,
                        x.device)
     for layer, c in zip(params.layers, cache):
-        x = layer(x, cfg, c, params.rope_freqs, positions=positions,
-                  window=window, chunked=chunked)
+        x, _ = layer(x, cfg, c, params.rope_freqs, positions=positions,
+                     window=window, chunked=chunked)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(cfg, params, x[:, -1, :]), cache
 
@@ -388,7 +376,7 @@ def decode_step(cfg, params, cache, tokens, pos: int, window: int = 0):
     (logits (B, V), cache), the cache updated in place."""
     x = _embed_tokens(cfg, params, tokens)
     for layer, c in zip(params.layers, cache):
-        x = layer(x, cfg, c, params.rope_freqs, pos=int(pos),
-                  window=window)
+        x, _ = layer(x, cfg, c, params.rope_freqs, pos=int(pos),
+                     window=window)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(cfg, params, x[:, -1, :]), cache

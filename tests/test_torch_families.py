@@ -41,7 +41,7 @@ from repro.models.model_zoo import build as ref_build
 
 from repro_torch import carry
 from repro_torch.config import ModelConfig, MoEConfig
-from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs import get_config
 from repro_torch.launch.serve import serve
 from repro_torch.models import mla, moe, transformer
 from repro_torch.models.model_zoo import build
@@ -256,10 +256,3 @@ def _unflat(flat):
             node = node.setdefault(name, {})
         node[last] = arr
     return tree
-
-
-def test_training_still_refuses_the_new_families():
-    for arch in FAMILIES:
-        cfg = smoke_variant(get_config(arch))
-        with pytest.raises(NotImplementedError, match="training"):
-            transformer.check_trainable(cfg)

@@ -28,9 +28,7 @@ from repro.models import encdec as ref_encdec
 from repro.models import ssm_mamba as ref_mamba
 from repro.models import ssm_rwkv as ref_rwkv
 
-from repro_torch.configs import get_config, smoke_variant
 from repro_torch.models import encdec, ssm_mamba, ssm_rwkv
-from repro_torch.models.model_zoo import build
 from torch_zoo import Family, cfgs, normal, tensors
 
 TOL = 1e-5
@@ -297,13 +295,3 @@ def test_recurrent_states_are_not_grown():
     assert cache[1]["conv"].shape == (2, 3, din)
     assert cache[1]["h"].shape == (2, din, 16)
     assert cache[1]["h"].dtype == torch.float32
-
-
-def test_training_still_refuses_the_new_families():
-    for arch in FAMILIES:
-        cfg = smoke_variant(get_config(arch))
-        model = build(cfg)
-        with pytest.raises(NotImplementedError, match="training"):
-            model.loss_fn(None, {})
-        with pytest.raises(NotImplementedError, match="training"):
-            model.abstract_params()

@@ -45,17 +45,12 @@ from repro_torch.configs import ARCH_IDS, decode_window, get_config, \
     smoke_variant
 from repro_torch.configs import mnist_rff as t_mnist_rff
 from repro_torch.data import pipeline
-from repro_torch.launch import train as t_train
 from repro_torch.launch.serve import serve
 from repro_torch.launch.train import make_batch
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.model_zoo import build
 
 DENSE = ("qwen3-4b", "yi-6b")
-TRAINING_NOT_PORTED = {"mixtral-8x7b": "MoE", "deepseek-v2-lite-16b": "MLA",
-              "rwkv6-1.6b": "RWKV", "jamba-1.5-large-398b": "Mamba",
-              "whisper-base": "encoder-decoder",
-              "internvl2-1b": "VLM patch prefix"}
 
 
 def _np(shape, seed, scale=1.0):
@@ -360,26 +355,6 @@ def test_carried_bfloat16_params_keep_their_bits():
     np.testing.assert_array_equal(
         params.layers[1].attn["wo"].float().numpy(),
         params_ref["stage0"]["l0"]["attn"]["wo"][1].astype(np.float32))
-
-
-@pytest.mark.parametrize("arch", sorted(TRAINING_NOT_PORTED))
-def test_non_dense_configs_raise(arch):
-    """The other families serve (`build` and `init_params` succeed; their
-    serving is held against the reference in test_torch_families.py and
-    test_torch_recurrent.py); their training still raises, naming the
-    family and training."""
-    cfg = smoke_variant(get_config(arch))
-    model = build(cfg)
-    params = model.init_params(device="cpu")
-    assert params.cfg == cfg
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError,
-                       match=f"training.*{TRAINING_NOT_PORTED[arch]}|"
-                       f"{TRAINING_NOT_PORTED[arch]}.*training"):
-        model.loss_fn(params, batch)
-    with pytest.raises(NotImplementedError, match="training"):
-        t_train.train(cfg, steps=1, device="cpu")
 
 
 def test_serve_without_device_needs_cuda():

@@ -42,10 +42,6 @@ from repro.checkpoint import io as ref_io
 from repro.config import FLConfig as RefFLConfig
 from repro.configs import get_config as ref_get_config
 from repro.configs import smoke_variant as ref_smoke_variant
-from repro.core import load_allocation as ref_alloc
-from repro.core.delay_model import mec_network as ref_mec_network
-from repro.core.delay_model import packet_bits as ref_packet_bits
-from repro.core.delay_model import scale_tau as ref_scale_tau
 from repro.data import synthetic as ref_synthetic
 from repro.launch import train as ref_train
 from repro.launch.train import make_batch as ref_make_batch
@@ -67,11 +63,11 @@ from repro_torch.launch.train import train
 from repro_torch.models import attention, common, transformer
 from repro_torch.models.model_zoo import build
 from repro_torch.optim import optimizers, schedule
+from torch_zoo import (assert_leaves_close, flat, port_grads, reference_plan,
+                       tree_np)
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ("qwen3-4b", "yi-6b")
-TRAINING_NOT_PORTED = ("mixtral-8x7b", "deepseek-v2-lite-16b", "rwkv6-1.6b",
-              "jamba-1.5-large-398b", "whisper-base", "internvl2-1b")
 LEAF_TOL = 1e-5
 BF16_LOSS_TOL, BF16_LEAF_TOL = 1e-3, 2e-2
 TRAIN_TOL = 1e-4
@@ -102,33 +98,6 @@ def _cfgs(arch, dtype="float32", **kw):
 
 def _ref_params(ref_cfg, seed=0):
     return ref_build(ref_cfg).init_params(jax.random.PRNGKey(seed))
-
-
-def _tree_np(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _flat(tree) -> dict:
-    """{reference key path: float32 array} of a reference tree."""
-    return ckpt._flatten(_tree_np(tree))
-
-
-def _port_grads(params) -> dict:
-    """The port's gradients in the reference's key paths (layers
-    stacked)."""
-    out = {}
-    for key, leaf in carry._layer_leaves(params).items():
-        out[key] = (np.stack([carry._host(t.grad) for t in leaf])
-                    if isinstance(leaf, list) else carry._host(leaf.grad))
-    return out
-
-
-def _assert_leaves_close(got: dict, want: dict, tol: float):
-    assert sorted(got) == sorted(want)
-    for key in want:
-        scale = max(float(np.abs(want[key]).max()), 1e-30)
-        err = float(np.abs(got[key] - want[key]).max())
-        assert err <= tol * scale, (key, err, scale)
 
 
 # ------------------------------------------------------------------ common
@@ -199,9 +168,9 @@ def test_attn_train_value_and_gradient_match(window):
     xt = torch.tensor(x, requires_grad=True)
     out = attention.attn_train(p, xt, torch.from_numpy(pos), cfg, window)
     (out * torch.from_numpy(r)).sum().backward()
-    _assert_leaves_close({"out": out.detach().numpy()},
+    assert_leaves_close({"out": out.detach().numpy()},
                          {"out": np.asarray(want)}, 1e-5)
-    _assert_leaves_close({k: t.grad.numpy() for k, t in p.items()}
+    assert_leaves_close({k: t.grad.numpy() for k, t in p.items()}
                          | {"x": xt.grad.numpy()},
                          {k: np.asarray(v) for k, v in gp.items()}
                          | {"x": np.asarray(gx)}, 1e-5)
@@ -222,7 +191,7 @@ def dense_pairs():
         loss, g = jax.value_and_grad(
             lambda p: model.loss_fn(p, b, remat=False))(params)
         hidden = ref_transformer.hidden_states(rcfg, params, b)
-        out[arch] = (cfg, _tree_np(params), b, float(loss), _flat(g),
+        out[arch] = (cfg, tree_np(params), b, float(loss), flat(g),
                      np.asarray(hidden))
     return out
 
@@ -239,7 +208,7 @@ def test_loss_and_every_grad_leaf_match(dense_pairs, arch):
     loss = transformer.loss_fn(cfg, params, _port_batch(b), remat=False)
     loss.backward()
     assert abs(float(loss) - want_loss) <= 1e-5 * abs(want_loss)
-    _assert_leaves_close(_port_grads(params), want_g, LEAF_TOL)
+    assert_leaves_close(port_grads(params), want_g, LEAF_TOL)
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -252,7 +221,7 @@ def test_remat_changes_no_bit(dense_pairs, arch):
         loss = transformer.loss_fn(cfg, params, _port_batch(b), window=8,
                                    remat=remat)
         loss.backward()
-        got[remat] = (loss.detach(), _port_grads(params))
+        got[remat] = (loss.detach(), port_grads(params))
     assert torch.equal(got[False][0], got[True][0])
     for key, g in got[False][1].items():
         np.testing.assert_array_equal(got[True][1][key], g)
@@ -273,33 +242,14 @@ def test_bf16_loss_and_grads_within_bf16_tolerance():
     b = ref_make_batch(rcfg, 2, 32, 5)
     loss, g = jax.value_and_grad(
         lambda p: ref_build(rcfg).loss_fn(p, b, remat=False))(params)
-    tp = carry.model_params_from_reference(_tree_np(params), cfg, "cpu")
+    tp = carry.model_params_from_reference(tree_np(params), cfg, "cpu")
     tp.requires_grad_(True)
     got = transformer.loss_fn(cfg, tp, _port_batch(b))
     got.backward()
     assert got.dtype == torch.float32
     assert all(p.grad.dtype == torch.bfloat16 for p in tp.parameters())
     assert abs(float(got) - float(loss)) <= BF16_LOSS_TOL * float(loss)
-    _assert_leaves_close(_port_grads(tp), _flat(g), BF16_LEAF_TOL)
-
-
-@pytest.mark.parametrize("arch", TRAINING_NOT_PORTED)
-def test_loss_fn_refuses_the_families_not_ported(arch):
-    """These families serve (`build` succeeds) but do not train yet."""
-    cfg = smoke_variant(get_config(arch))
-    model = build(cfg)
-    with pytest.raises(NotImplementedError, match="training"):
-        model.loss_fn(None, {"tokens": torch.zeros((1, 4)),
-                             "labels": torch.zeros((1, 4))})
-    with pytest.raises(NotImplementedError, match="training"):
-        model.abstract_params()
-    if not cfg.is_encdec:
-        with pytest.raises(NotImplementedError, match="training"):
-            transformer.loss_fn(cfg, None, {"tokens": torch.zeros((1, 4)),
-                                            "labels": torch.zeros((1, 4))})
-        with pytest.raises(NotImplementedError, match="training"):
-            transformer.hidden_states(cfg, None,
-                                      {"tokens": torch.zeros((1, 4))})
+    assert_leaves_close(port_grads(tp), flat(g), BF16_LEAF_TOL)
 
 
 def test_abstract_params_shapes_match_reference():
@@ -402,7 +352,7 @@ def test_train_plain_matches_reference():
     _, want, wall = ref_train.train(rcfg, steps=4, batch=2, seq=32,
                                     log_every=0, seed=2)
     params = carry.model_params_from_reference(
-        _tree_np(_ref_params(rcfg, seed=2)), cfg, "cpu")
+        tree_np(_ref_params(rcfg, seed=2)), cfg, "cpu")
     got_params, got, got_wall = train(cfg, steps=4, batch=2, seq=32,
                                       log_every=0, seed=2, device="cpu",
                                       params=params)
@@ -411,30 +361,13 @@ def test_train_plain_matches_reference():
     assert got[-1] < got[0]
 
 
-def _reference_plan(rcfg, fl, batch, seq, seed, steps):
-    """The reference train's federated host setup and delay draws, replayed
-    with the reference's own modules: (t*, loads, returned sets)."""
-    n_param = sum(np.prod(leaf.shape) for leaf in jax.tree_util.tree_leaves(
-        ref_transformer.abstract_params(rcfg)))
-    nodes = [ref_scale_tau(nd, ref_packet_bits(fl, int(n_param)))
-             for nd in ref_mec_network(fl, d_scalars_per_point=seq * 4)]
-    alloc = ref_alloc.two_step_allocate(
-        nodes, [float(batch)] * fl.n_clients, server=None,
-        u_max=0.25 * batch * fl.n_clients, m=float(batch * fl.n_clients))
-    rng = np.random.default_rng(seed + 5)
-    returned = [[j for j in range(fl.n_clients)
-                 if nodes[j].sample(rng, float(alloc.loads[j]))[0]
-                 <= alloc.t_star] for _ in range(steps)]
-    return alloc.t_star, list(alloc.loads), returned
-
-
 # (n_clients, seed): 4 clients; 1 client at a seed whose second step has no
 # return (found by the host replay; the test asserts it)
 @pytest.mark.parametrize("n,seed", [(4, 0), (1, 1)])
 def test_train_federated_matches_reference(n, seed):
     rcfg, cfg = _cfgs("qwen3-4b")
     steps, batch, seq = 3, 2, 32
-    t_star, loads, returned = _reference_plan(
+    t_star, loads, returned = reference_plan(
         rcfg, RefFLConfig(n_clients=n), batch, seq, seed, steps)
     if n == 1:
         assert [] in returned
@@ -443,7 +376,7 @@ def test_train_federated_matches_reference(n, seed):
                                     fl_cfg=RefFLConfig(n_clients=n),
                                     log_every=0, seed=seed)
     params = carry.model_params_from_reference(
-        _tree_np(_ref_params(rcfg, seed=seed)), cfg, "cpu")
+        tree_np(_ref_params(rcfg, seed=seed)), cfg, "cpu")
     hist = {}
     _, got, got_wall = train(cfg, steps=steps, batch=batch, seq=seq,
                              federated=True, fl_cfg=FLConfig(n_clients=n),
@@ -478,7 +411,7 @@ def test_param_checkpoints_cross_packages(tmp_path):
     assert ckpt.restore_step(ref_file) == ref_io.restore_step(ref_file) == 7
     assert got.embed.dtype == torch.bfloat16
     back = carry.model_params_to_reference(got)
-    for key, arr in _flat(params).items():
+    for key, arr in flat(params).items():
         np.testing.assert_array_equal(ckpt._flatten(back)[key], arr)
     # the port writes, the reference restores: the same bits
     port_file = str(tmp_path / "port.npz")
@@ -530,11 +463,11 @@ def test_param_restore_refusals_match_reference(tmp_path):
     rcfg, cfg = _cfgs("qwen3-4b")
     params = _ref_params(rcfg)
     path = str(tmp_path / "p.npz")
-    flat = _flat(params)
+    leaves = flat(params)
     cases = {
-        "extra": dict(flat, **{"stage0/l0/bogus": np.zeros(2)}),
-        "missing": {k: v for k, v in flat.items() if k != "stage0/l0/ln2"},
-        "shape": dict(flat, final_norm=np.zeros(3, np.float32)),
+        "extra": dict(leaves, **{"stage0/l0/bogus": np.zeros(2)}),
+        "missing": {k: v for k, v in leaves.items() if k != "stage0/l0/ln2"},
+        "shape": dict(leaves, final_norm=np.zeros(3, np.float32)),
     }
     for name, payload in cases.items():
         np.savez(path, **payload)
