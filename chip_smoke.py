@@ -13,42 +13,58 @@ Phases, each printed as one JSON object per line:
              rff_embed kernel, sort-and-shard over 30 clients, then
              build_experiment(...).run(20) for coded, naive and greedy.
              Launch counts are reset before and read after, and asserted;
-  4. cpu:    the same coded deployment for 3 rounds on the card and on the
+  4. mesh:   the client mesh: the main path's deployment (n = 30, 31 rows
+             with the parity row, q = 2000, c = 10) over 1, 2 and 4 ranks
+             on the card (gloo: the ranks share the one card, and NCCL
+             refuses two ranks of one communicator on one GPU): 7 ranks
+             spawned once with repro_torch.launch.mesh.spawn, cut into
+             groups of 1, 2 and 4 that build and run side by side, then
+             time one k at a time; ranks 1-6 refused by the world's
+             one-rank mesh; for each k,
+             coded (fused and fused_coded=False), naive and greedy, 20
+             rounds: wall clock and returned counts equal to the main
+             path's runs, theta within 1e-5 of the unsharded card run (k =
+             1, itself bit-equal to the main path's run) and bit-equal
+             across the ranks, 20 linreg_grad_masked launches a rank (+ 20
+             linreg_grad unfused), each rank's peak device bytes beside its
+             shard's reckoned bytes, warm ms/round beside the all-reduce's
+             ms (CUDA events) for one round's (q c + 1) buffer;
+  5. cpu:    the same coded deployment for 3 rounds on the card and on the
              CPU (plain versions); returned counts and wall clock must be
              identical and theta must agree within the stated tolerance;
-  5. fused_embed: coded, naive and greedy with fused_embed=True on the RAW
+  6. fused_embed: coded, naive and greedy with fused_embed=True on the RAW
              (30, 400, 784) shards, one rff_linreg_grad_masked launch a
              round (the coded round passes its live rows, l_max client rows
              and u parity rows); the coded run against its two-pass control
              (the main path's coded deployment, whose embedded shards are
              shown to be the same bits), its device memory held far below
              one (rows, L, q) tensor, and its warm ms per round;
-  6. unfused: coded with fused_coded=False, the coded gradient a separate
+  7. unfused: coded with fused_coded=False, the coded gradient a separate
              linreg_grad launch a round, against the main path's coded run;
-  7. legacy: coded, naive and greedy on engine="legacy", the per-client
+  8. legacy: coded, naive and greedy on engine="legacy", the per-client
              oracle, against the main path's batched runs;
-  8. encode_local: the per-client parity_encode loop over the coded
+  9. encode_local: the per-client parity_encode loop over the coded
              deployment's 30 clients, then aggregate_parity, against the
              batched encode of the main path, bit for bit;
-  9. resume: the main path's coded deployment with checkpoint_every = 5:
+ 10. resume: the main path's coded deployment with checkpoint_every = 5:
              one block, a checkpoint in the git-ignored build/, the kill,
              then a freshly built experiment restores it (digest verified)
              and finishes; theta, wall clock and returned counts bit-identical
              to the uninterrupted blocked run, 20 linreg_grad_masked launches
              over the killed and the resumed run; save and restore times;
- 10. multi:  run_multi(20, 8) on the main path's coded and naive
+ 11. multi:  run_multi(20, 8) on the main path's coded and naive
              deployments: the (8, 20) wall clock and returned counts equal
              to the delay draw replayed on the host, bit for bit; 8 x 20
              launches; run_multi(20, 1) equal to run(20) from the same
              generator position; warm ms per realization-round;
- 11. alloc:  MNIST-RFF at n = 100 clients (l = 120): the vectorized
+ 12. alloc:  MNIST-RFF at n = 100 clients (l = 120): the vectorized
              allocator in float64 on the card against the scalar one on the
              host (both timed; t* within 2e-6 (1 + t*), loads within 1e-4,
              node for node within 1e-6 (1 + l)), then a coded deployment
              whose auto backend picks the vectorized solver, run 20 rounds;
- 12. quickstart: repro_torch.launch.quickstart.main() on the card: five
+ 13. quickstart: repro_torch.launch.quickstart.main() on the card: five
              schemes, kill/resume bit-identical, bands over 8 realizations;
- 13. channel: the main path's deployment under channel profiles: "static"
+ 14. channel: the main path's deployment under channel profiles: "static"
              for coded, naive and greedy, bit-identical to the main path's
              runs; coded, naive, greedy and ideal under drift_churn, 20
              rounds each, wall clock and returned counts equal to the host
@@ -64,7 +80,7 @@ Phases, each printed as one JSON object per line:
              run_multi(20, 4) of
              coded and naive against the host replay (one trace stream a
              realization);
- 14. adaptive: adaptive_coded under degrade_drift, adapt_every 5,
+ 15. adaptive: adaptive_coded under degrade_drift, adapt_every 5,
              checkpoint_every 5, 20 rounds: re-plan times (3, on the
              scalar solver), ms per round without them and of the round
              loop alone (replayed from the schedule: the same theta bits),
@@ -76,7 +92,7 @@ Phases, each printed as one JSON object per line:
              auto re-planning on the vectorized solver on the card;
              repro_torch.launch.adaptive_drift.main() (120 launches, the
              adaptive run sooner to the target);
- 15. faults: return faults at MNIST-RFF width: coded (fused and
+ 16. faults: return faults at MNIST-RFF width: coded (fused and
              fused_coded=False) under "chaos" (NaN/inf mix, stale replay,
              parity corruption) and naive under "flaky_clients" with the
              guard on and off, 20 rounds each; wall clock and returned
@@ -91,19 +107,19 @@ Phases, each printed as one JSON object per line:
              checkpoints corrupted (truncate, bitflip), a fresh experiment
              resumes from the newest intact one bit for bit (theta_prev and
              fault_rng_state in the checkpoint);
- 16. secure_agg: the coded deployment with secure_aggregation=True: its
+ 17. secure_agg: the coded deployment with secure_aggregation=True: its
              global parity within secure_agg.rounding_tolerance of the main
              path's unmasked one (the gap printed), 2 parity_encode_batched
              launches, the 20-round run's wall clock and returned counts
              equal to the main coded run's and theta within tolerance; the
              setup split into the solver, the encode and the masks;
- 17. sweep:  launch.sweep.run_sweep over uniform, paper and extreme with
+ 18. sweep:  launch.sweep.run_sweep over uniform, paper and extreme with
              every grid scheme, R = 4, T = 20: 1200 linreg_grad_masked
              launches; each cell against the deployment's run_multi(20, 4)
              from the same generator position (wall clock and returned
              counts equal, theta bit for bit); host_seconds beside the
              looped time;
- 18. telemetry: run telemetry (repro_torch.obs) at MNIST-RFF width: a
+ 19. telemetry: run telemetry (repro_torch.obs) at MNIST-RFF width: a
              coded deployment built inside collecting(), 20 rounds with
              checkpoint_every 5 and a journal under the git-ignored
              build/chip_smoke_obs; theta, wall clock and returned counts
@@ -116,7 +132,7 @@ Phases, each printed as one JSON object per line:
              render_report; then launch.report.run_telemetry on the card at
              its defaults: its three invariants, and overhead_ratio beside
              the reference's ceiling of 1.05 (printed, not a gate);
- 19. service: launch.service.ExperimentService at MNIST-RFF width: a coded
+ 20. service: launch.service.ExperimentService at MNIST-RFF width: a coded
              and a naive job (20 rounds, checkpoint_every 5, spans on, so
              each is journaled) through an uninterrupted control service,
              and through a service dropped after 3 steps and resumed by a
@@ -126,7 +142,7 @@ Phases, each printed as one JSON object per line:
              checkpoint-save times per block; then
              launch.resilience.run_resilience on the card at the
              reference's defaults, validate_resilience == [];
- 20. hier:   the hierarchical tier at MNIST-RFF width: the main path's
+ 21. hier:   the hierarchical tier at MNIST-RFF width: the main path's
              embedded shards over 3 edge aggregators (n_s = 10, l = 400,
              q = 2000, c = 10, u_s = 800), sample_fraction 0.5, 20 rounds
              in blocks of 5, built and run with telemetry on and a journal
@@ -143,13 +159,13 @@ Phases, each printed as one JSON object per line:
              f = 1 twin (same plans and delay stream, reweight 1); setup
              split by span, warm ms/round, and the share of a round that
              uploads the shards' client blocks;
- 21. hier_scale: repro_torch.launch.hier_scale.main() on the card (n =
+ 22. hier_scale: repro_torch.launch.hier_scale.main() on the card (n =
              10,000 over 10 shards, l = 8, q = 16, c = 3, f = 0.25, the
              kill/resume against the uninterrupted run), then
              launch.scale.run_scale over n = 1e3, 1e4, 1e5 at the
              reference's defaults, validate_scale == []; each rung's device
              peak memory beside its peak client tensor and the dense bytes;
- 22. bench:  the benchmark launchers.  repro_torch.launch.mnist_codedfedl
+ 23. bench:  the benchmark launchers.  repro_torch.launch.mnist_codedfedl
              .main(full=True), the paper's driver (n = 30, m = 12000, d =
              784, q = 2000, 350 rounds; naive, greedy and coded with the
              test accuracy every 5 rounds, run_multi(350, 8) bands of naive
@@ -166,12 +182,12 @@ Phases, each printed as one JSON object per line:
              launch) and on "xla" (none), the five outputs held against
              each other.  launch.bench.run_schemes at the reference CLI's
              default scale with the scale, telemetry and resilience
-             sections of phases 18, 19 and 21 attached (not rerun), the
+             sections of phases 19, 20 and 22 attached (not rerun), the
              artifact under the git-ignored build/chip_smoke_bench,
              validate_artifact == [] but for the overhead ceiling the
              telemetry phase prints as a measurement; its profiles equal
              to a CPU run's field for field (host seconds aside);
- 23. serve:  the model zoo's serving path, qwen3-4b at full width (36
+ 24. serve:  the model zoo's serving path, qwen3-4b at full width (36
              layers, d_model 2560, bf16) from seeded random weights: 8
              requests of 4096-token prompts (make_batch), 64 greedy tokens
              each (max_seq 4160, window 0) through
@@ -180,13 +196,13 @@ Phases, each printed as one JSON object per line:
              its byte bound, tokens/s; then torch.profiler over 4 warm
              decode steps after a second prefill: device busy and idle
              share of a step, the top kernels, and gqa_decode's share;
- 24. serve_check: full width at 4 layers, float32: the last decode step's
+ 25. serve_check: full width at 4 layers, float32: the last decode step's
              logits against the last-position logits of a prefill over
              prompt + generated tokens, at window 0 and at window 1024 over
              a 4096-token prompt (a rolling cache);
- 25. serve_cpu: the qwen3-4b smoke variant served on the card and on the
+ 26. serve_cpu: the qwen3-4b smoke variant served on the card and on the
              CPU (plain versions): identical tokens, logits within tolerance;
- 26. families: the model zoo's other families served through
+ 27. families: the model zoo's other families served through
              repro_torch.launch.serve.serve at their published widths in
              bf16 from seeded random weights, 4 requests of 1024 prompt
              positions (internvl2: 256 patches + 768 tokens; whisper: 224
@@ -207,7 +223,7 @@ Phases, each printed as one JSON object per line:
              the last decode step against a prefill over prompt + generated
              tokens (rwkv6: the chunked prefill and the sequential decode
              against one sequential prefill);
- 27. train:  the model zoo's training path, after the serving model is
+ 28. train:  the model zoo's training path, after the serving model is
              freed.  full: qwen3-4b at full width (36 layers, d_model 2560,
              bf16) from seeded weights, Adam, the train CLI's
              --full-config defaults (20 steps, batch 4, seq 64) through
@@ -249,7 +265,7 @@ Phases, each printed as one JSON object per line:
              full-width jamba gradient at 128 positions (F4 read as a
              measurement), and train(federated=True) on deepseek's smoke
              variant against the host replay of its delay draws;
- 28. kernel: each kernel against its plain PyTorch version on the card, at
+ 29. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
              tile multiple; times with CUDA events.  linreg_grad_masked at
@@ -289,7 +305,7 @@ Phases, each printed as one JSON object per line:
              by events, on the device (device_ms, library_device_ms) and on
              the host (host_ms: the wrapper's enqueue), beside SDPA with its
              mask made once outside the timed calls;
- 29. the kernels table, then the final line
+ 30. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -338,6 +354,23 @@ OBS_EVERY = 5             # checkpoint_every of the telemetry and service jobs
 TELEMETRY_PAIRS = 3       # spans-off / spans-on warm runs timed in turns
 REPORT_LINES = 14         # first lines of render_report printed
 SERVICE_DROP_AFTER = 3    # service steps before the drop
+# the mesh phase: the main path's deployment on the first k ranks of one
+# spawned group, k in MESH_RANKS, each of MESH_RUNS; its inputs under the
+# git-ignored build/
+MESH_RANKS = (1, 2, 4)
+MESH_RUNS = (("coded", {}), ("unfused", {"fused_coded": False}),
+             ("naive", {"scheme": "naive"}), ("greedy", {"scheme": "greedy"}))
+MESH_TIMEOUT_S = 120.0    # the spawn's bound on each collective
+# the spawn's bound on its whole run: the phase took 34-89 s on the H100's
+# hosts (the spawn, seven ranks' builds, the timed runs)
+MESH_DEADLINE_S = 240.0
+MESH_ALLREDUCE_REPS = 20  # all-reduces of one round's buffer, timed alone
+MESH_DIR = CKPT_DIR.parent / "chip_smoke_mesh"
+# sharded theta against the unsharded card run, relative to max|theta|:
+# the shards' sums reach the all-reduce in another order, and the float32
+# rounding is carried through 20 SGD updates; the reference's own
+# tolerance for its sharded engine (tests/test_sharded_engine.py)
+MESH_REL_TOL = 1e-5
 # the hierarchical tier at MNIST-RFF width: edge aggregators, the sampled
 # fraction, rounds a block; its run directories under the git-ignored build/
 HIER_SHARDS = 3
@@ -776,6 +809,213 @@ def main_path(torch, dev):
                 x_tr=x_tr, omega=omega, delta=delta, coded=results["coded"],
                 g_stack=g_stack, results=results, ds=ds, nodes=nodes,
                 launches=main_launches, warm=warm, sections={})
+
+
+def _allreduce_ms(torch, mesh, numel: int) -> dict:
+    """One round's all-reduce alone: a (numel,) float32 buffer on the
+    rank's card, MESH_ALLREDUCE_REPS calls between CUDA events, after a
+    barrier (and the host's clock around them)."""
+    buf = torch.zeros(numel, device=mesh.device)
+    for _ in range(3):
+        mesh.all_reduce_(buf)
+    mesh.barrier()
+    torch.cuda.synchronize(mesh.device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(MESH_ALLREDUCE_REPS):
+        mesh.all_reduce_(buf)
+    end.record()
+    end.synchronize()
+    host = (time.perf_counter() - t0) / MESH_ALLREDUCE_REPS * 1e3
+    return {"ms": start.elapsed_time(end) / MESH_ALLREDUCE_REPS,
+            "host_ms": host, "bytes": numel * 4}
+
+
+def mesh_rank(rank: int, spec, xs_path: str, ys_path: str) -> dict:
+    """One rank of the mesh phase (repro_torch.launch.mesh.spawn over
+    sum(MESH_RANKS) ranks): the world is cut into one group a k of
+    MESH_RANKS (ranks 0, then 1-2, then 3-6 for 1, 2, 4), and each rank
+    builds and runs every one of MESH_RUNS on the mesh of its group, the
+    groups side by side; then one k at a time, the others waiting, its
+    group times warm runs and one round's all-reduce.  A rank outside
+    rank 0 is refused by a build on the world's one-rank mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api import build_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_client_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    xs, ys = np.load(xs_path), np.load(ys_path)
+    q, c = xs.shape[2], ys.shape[2]
+    # every rank makes every group, in one order (a collective of all)
+    first, mine = 0, None
+    for k in MESH_RANKS:
+        ranks = list(range(first, first + k))
+        group = dist.new_group(ranks=ranks) if k > 1 else None
+        if rank in ranks:
+            mine = (k, group)
+        first += k
+    k, group = mine
+    mesh = make_client_mesh(k, group=group)
+    out = {"k": k, "shard": mesh.rank, "runs": {}}
+    if rank != 0:
+        try:
+            build_experiment(spec, xs, ys, mesh=make_client_mesh(1))
+            out["refused"] = None
+        except ValueError as exc:
+            out["refused"] = str(exc)
+    dev = mesh.device
+    exps = {}
+    for name, over in MESH_RUNS:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)   # the runs built before
+        t0 = time.perf_counter()
+        exp = build_experiment(dataclasses.replace(spec, **over), xs, ys,
+                               mesh=mesh)
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        res = exp.run(ROUNDS)
+        torch.cuda.synchronize(dev)
+        consts = exp._get_consts()
+        rows, L = consts["gmask"].shape
+        out["runs"][name] = {
+            "theta": res.theta.cpu().numpy(),
+            "wall": [h.wall_clock for h in res.history],
+            "returned": [h.returned for h in res.history],
+            "launches": dict(ops.LAUNCHES), "setup_s": setup_s,
+            "peak_bytes": int(torch.cuda.max_memory_allocated(dev) - held),
+            "shard_rows": int(rows), "L": int(L),
+            "shard_bytes": int(sum(consts[t].numel()
+                                   * consts[t].element_size()
+                                   for t in ("gx", "gy", "gmask"))),
+            "reckoned_bytes": int(rows * L * (q + c + 1) * 4),
+            "live_rows": [int(v) for v in consts.get("live_rows", ())]}
+        exps[name] = exp
+        del res, consts
+    for timed in MESH_RANKS:
+        dist.barrier()
+        if timed == k:
+            for name, exp in exps.items():
+                mesh.barrier()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                exp.run(ROUNDS)
+                torch.cuda.synchronize(dev)
+                out["runs"][name]["warm_ms_per_round"] = (
+                    time.perf_counter() - t0) / ROUNDS * 1e3
+            if k > 1:
+                out["allreduce"] = _allreduce_ms(torch, mesh, q * c + 1)
+    dist.barrier()
+    return out
+
+
+def mesh_path(torch, dev, state) -> None:
+    """The client mesh: the main path's deployment over 1, 2 and 4 ranks
+    (one spawned group cut into three) on the card, against the main
+    path's runs."""
+    from repro_torch.launch.mesh import default_backend, spawn
+
+    world = sum(MESH_RANKS)
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    xs_path, ys_path = MESH_DIR / "xs.npy", MESH_DIR / "ys.npy"
+    np.save(xs_path, state["xs"])
+    np.save(ys_path, state["ys"])
+    backend = default_backend(world)
+    t0 = time.perf_counter()
+    outs = spawn(mesh_rank, world,
+                 args=(state["spec"], str(xs_path), str(ys_path)),
+                 timeout=MESH_TIMEOUT_S, deadline=MESH_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    for r, o in enumerate(outs[1:], start=1):
+        check(o["refused"] is not None and f"rank {r}" in o["refused"],
+              f"mesh: rank {r} was not refused by the world's one-rank "
+              "mesh")
+    n = state["xs"].shape[0]
+    # rank 0 is the one-rank mesh: its unfused run is the unsharded one
+    unsharded_unfused = outs[0]["runs"]["unfused"]["theta"]
+    runs, allreduce = [], {}
+    for k in MESH_RANKS:
+        group = sorted((o for o in outs if o["k"] == k),
+                       key=lambda o: o["shard"])
+        check([o["shard"] for o in group] == list(range(k)),
+              f"mesh k = {k}: shards {[o['shard'] for o in group]}")
+        if k > 1:
+            allreduce[str(k)] = group[0]["allreduce"]
+        for name, _ in MESH_RUNS:
+            key = f"{name}/{k}"
+            mine = [o["runs"][name] for o in group]
+            # the host quantities are the main path's (unfused: its coded
+            # run's); theta is held against the unsharded card run: the
+            # main path's, or for unfused the one-rank mesh (the whole
+            # round on one rank, no all-reduce)
+            want = state["results"]["coded" if name == "unfused"
+                                    else name][1]
+            check(mine[0]["wall"] == [h.wall_clock for h in want.history],
+                  f"mesh {key}: wall clock differs from the main path's")
+            check(mine[0]["returned"]
+                  == [h.returned for h in want.history],
+                  f"mesh {key}: returned counts differ from the main path's")
+            same = all(np.array_equal(m["theta"], mine[0]["theta"])
+                       for m in mine)
+            check(same, f"mesh {key}: theta differs across the ranks")
+            ref = (unsharded_unfused if name == "unfused"
+                   else want.theta.cpu().numpy())
+            err = float(np.abs(mine[0]["theta"] - ref).max())
+            tol = MESH_REL_TOL * max(1.0, float(np.abs(ref).max()))
+            check(err <= tol, f"mesh {key}: theta differs from the "
+                  f"unsharded card run by {err} > {tol}")
+            main_bits = (bool(np.array_equal(mine[0]["theta"], ref))
+                         if k == 1 and name != "unfused" else None)
+            if main_bits is not None:
+                check(main_bits, f"mesh {key}: the one-rank mesh differs "
+                      "from the main path's run")
+            rows = -(-(n + (1 if name == "coded" else 0)) // k)
+            for r, m in enumerate(mine):
+                lc = m["launches"]
+                check(lc["linreg_grad_masked"] == ROUNDS,
+                      f"mesh {key} shard {r}: linreg_grad_masked launched "
+                      f"{lc['linreg_grad_masked']} times")
+                check(lc["linreg_grad"] == (ROUNDS if name == "unfused"
+                                            else 0),
+                      f"mesh {key} shard {r}: linreg_grad launched "
+                      f"{lc['linreg_grad']} times")
+                check(lc["rff_linreg_grad_masked"] == 0,
+                      f"mesh {key} shard {r}: rff_linreg_grad_masked "
+                      "launched")
+                check(m["shard_rows"] == rows
+                      and m["shard_bytes"] == m["reckoned_bytes"],
+                      f"mesh {key} shard {r}: kept {m['shard_rows']} rows "
+                      f"({m['shard_bytes']} bytes), not {rows}")
+                add_launches(state, lc)
+            runs.append({
+                "k": k, "run": name, "wall_clock": mine[0]["wall"][-1],
+                "returned": mine[0]["returned"],
+                "host_equal_to_main": True, "theta_max_abs_err": err,
+                "tol": tol, "theta_equal_across_ranks": same,
+                "bit_equal_to_main": main_bits,
+                "shard_rows": rows, "L": mine[0]["L"],
+                "live_rows_per_rank": [m["live_rows"] for m in mine],
+                "launches_per_rank": [
+                    {kern: m["launches"][kern] for kern in
+                     ("linreg_grad_masked", "linreg_grad",
+                      "parity_encode_batched")} for m in mine],
+                "peak_bytes_per_rank": [m["peak_bytes"] for m in mine],
+                "shard_bytes": mine[0]["shard_bytes"],
+                "setup_s_per_rank": [m["setup_s"] for m in mine],
+                "warm_ms_per_round_per_rank":
+                    [m["warm_ms_per_round"] for m in mine]})
+    emit({"phase": "mesh", "backend": backend, "world": world,
+          "ranks": list(MESH_RANKS), "rounds": ROUNDS, "spawn_s": spawn_s,
+          "runs": runs, "allreduce": allreduce,
+          "note": "every rank shares the one card; the groups build and "
+          "run side by side, then time one k at a time (warm ms, the "
+          "all-reduce by CUDA events)"})
 
 
 def cpu_twin(torch, dev, state) -> None:
@@ -5066,8 +5306,9 @@ def main() -> int:
     t0 = time.perf_counter()
     state = main_path(torch, dev)
     emit({"phase": "main", "seconds": time.perf_counter() - t0})
-    for phase in (cpu_twin, fused_embed_path, unfused_path, legacy_path,
-                  encode_local_path, resume_path, multi_path, alloc_path,
+    for phase in (mesh_path, cpu_twin, fused_embed_path, unfused_path,
+                  legacy_path, encode_local_path, resume_path, multi_path,
+                  alloc_path,
                   quickstart_path, channel_path, adaptive_path, faults_path,
                   secure_agg_path, sweep_path, telemetry_path, service_path,
                   hier_path, hier_scale_path, bench_path, serve_path,

@@ -19,7 +19,7 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.config import ExperimentSpec, unsupported_features
+from repro_torch.config import ExperimentSpec
 from repro_torch.core import schemes
 from repro_torch.core.fed_runtime import (Experiment, FedResult,  # noqa: F401
                                           MultiFedResult, RoundLog,
@@ -62,7 +62,8 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack=None,
                      nodes: Optional[list] = None,
                      rng: Optional[np.random.Generator] = None,
                      device=None, parity_generators=None,
-                     rff_draw=None, secure_masks=None, data_fn=None):
+                     rff_draw=None, secure_masks=None, mesh=None,
+                     data_fn=None):
     """Build a runnable `Experiment` (or `HierExperiment`) from a spec and
     client data.
 
@@ -80,7 +81,12 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack=None,
     `secure_masks` = (x masks (P, u, q), y masks (P, u, c)), one a client
     pair, replaces the secure-aggregation setup's own mask draws —
     ``repro_torch.carry.secure_masks_from_reference`` — and is refused
-    without ``spec.secure_aggregation``.
+    without ``spec.secure_aggregation``.  `mesh` overrides ``spec.mesh``:
+    a rank count or a `repro_torch.launch.mesh.ClientMesh` (a mesh object
+    is no spec field), sharding the client axis over the first k ranks of
+    the process group, one all-reduce a round; every rank of the group
+    calls this with the same arguments, and a rank past the first k is
+    refused with a ``ValueError`` naming it.
 
     Specs with ``hier_shards > 1`` or ``sample_fraction < 1.0`` build a
     `repro_torch.hier.HierExperiment` instead (edge-aggregator shards,
@@ -90,22 +96,14 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack=None,
     (``repro_torch.carry.hier_generators_from_reference``).  The identity
     configuration (``hier_shards=1, sample_fraction=1.0``) always takes
     the flat engine.
-
-    A spec that asks for a feature the port does not have yet raises
-    ``NotImplementedError`` naming it.
     """
     if isinstance(spec, dict):
         spec = ExperimentSpec.from_dict(spec)
-    missing = unsupported_features(spec)
-    if missing:
-        raise NotImplementedError(
-            "the PyTorch port does not support " + "; ".join(missing)
-            + " yet")
     # validate the scheme against the live registry up front
     schemes.get_scheme(spec.resolved_scheme)
     if spec.hier_active:
         from repro_torch.hier import HierExperiment
-        if nodes is not None:
+        if nodes is not None or mesh is not None:
             raise ValueError(
                 "the hierarchical tier builds its delay population from "
                 "the spec (repro_torch.hier.population_delay_arrays) and "
@@ -127,4 +125,5 @@ def build_experiment(spec: "ExperimentSpec | dict", x_stack=None,
             "takes dense x_stack/y_stack")
     return Experiment(spec, x_stack, y_stack, nodes=nodes, rng=rng,
                       device=device, parity_generators=parity_generators,
-                      rff_draw=rff_draw, secure_masks=secure_masks)
+                      rff_draw=rff_draw, secure_masks=secure_masks,
+                      mesh=mesh)

@@ -13,12 +13,10 @@ gradient kernel (``fused_embed``), block-structured and checkpointed
 adaptive schemes (``adapt_every``), return-fault injection
 (``fault_profile``/``fault_params``, `resolved_faults`), secure
 aggregation of the parity sets (``secure_aggregation``), and the legacy
-per-client oracle (``engine="legacy"``); and the hierarchical tier
+per-client oracle (``engine="legacy"``); the hierarchical tier
 (``hier_shards``/``sample_fraction``, `hier_active`,
-``repro_torch.hier``).  A spec may still name the one feature the port
-does not have yet, a client mesh: the spec holds it so that it
-round-trips, and ``build_experiment`` raises ``NotImplementedError``
-naming the feature (`unsupported_features`).  Every combination the
+``repro_torch.hier``); and the client mesh (``mesh``, a rank count:
+`repro_torch.launch.mesh`).  Every combination the
 reference refuses when a spec is made raises ``ValueError`` here too,
 with the reference's message, and the fields are checked in the
 reference's order, so a spec with two faults names the same one.
@@ -466,11 +464,3 @@ class ExperimentSpec:
                 f"unknown ExperimentSpec field(s) {sorted(unknown)} "
                 f"(valid fields: {sorted(valid)})")
         return cls(**d)
-
-
-def unsupported_features(spec: ExperimentSpec) -> list[str]:
-    """Names of the features `spec` asks for that the port lacks."""
-    checks = (
-        (spec.mesh is not None, "client-mesh sharding (mesh)"),
-    )
-    return [name for asked, name in checks if asked]

@@ -1,7 +1,7 @@
-"""Federated-learning runtime of the port: the flat engine on one device.
+"""Federated-learning runtime of the port: the flat engine.
 
-The counterpart of ``repro.core.fed_runtime`` without a client mesh (the
-hierarchical tier is `repro_torch.hier`).  The batched engine
+The counterpart of ``repro.core.fed_runtime`` (the hierarchical tier is
+`repro_torch.hier`).  The batched engine
 (``engine="batched"``) runs the fused coded round (``fused_coded=True``:
 the parity set is one more row of the round's single gradient launch) or
 the unfused one (``fused_coded=False``: a separate ``linreg_grad``
@@ -30,6 +30,26 @@ with ``fused_embed=True``, over RAW ones that the
     reference's vmapped scan takes them, and runs the realizations one
     after another through the same step (``MultiFedResult``, the Fig. 4/5
     confidence bands).
+
+Client mesh (``spec.mesh = k``, or the ``mesh`` override of
+``build_experiment``: an int or a `repro_torch.launch.mesh.ClientMesh`):
+the batched engine's client axis is sharded over the first k ranks of a
+``torch.distributed`` group, SPMD.  Every rank builds the same deployment
+(the host work is deterministic from the seeds, so delays, allocation,
+returned counts and the wall clock are the same bits on every rank), pads
+the client rows to a multiple of k with zero rows (returned-mask entry
+0.0, so they add nothing) and keeps rows ``[r s, (r + 1) s)``.  A round
+launches the masked gradient on those rows, guards and sums them, and one
+``all_reduce`` of the (sum, count) pair, packed in one float32 buffer,
+replaces the reference's psum; every rank then applies the same update,
+so theta is the same bits on every rank.  The unfused coded parity
+gradient stays replicated, outside the reduction.  Adaptive schemes,
+return faults and ``fused_embed`` are refused with a mesh, as in the
+reference; the legacy engine ignores it (every rank runs the whole
+per-client loop), and a sweep replays the spec's mesh.  Under a mesh only
+rank 0 writes checkpoints and journals, and every rank learns each
+checkpoint write's outcome (so every rank can restore the same file, and
+a failed write raises on every rank).
 
 Network dynamics (``spec.channel_profile``, ``repro_torch.net``): a block's
 delays are drawn *through* a deterministic per-seed channel trace
@@ -92,7 +112,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import io as ckpt_io
-from repro_torch.config import ExperimentSpec, unsupported_features
+from repro_torch.config import ExperimentSpec
 from repro_torch.core import aggregation, rff, schemes
 from repro_torch.core.delay_model import (mec_network, packet_bits,
                                           sample_round_times, scale_tau)
@@ -193,6 +213,16 @@ def guard_and_sum(g, ret, guard: bool, bad=None):
     return aggregation.masked_gradient_sum(g, ret), n_masked
 
 
+def reduce_pair(mesh, g_sum, n_masked):
+    """The reference's psum of the (sum, count) pair over the client mesh:
+    one all-reduce of a float32 buffer holding the (q, c) sum and the
+    count (exact below 2**24)."""
+    buf = torch.cat([g_sum.reshape(-1),
+                     n_masked.to(torch.float32).reshape(1)])
+    mesh.all_reduce_(buf)
+    return buf[:-1].view(g_sum.shape), buf[-1].to(torch.int32)
+
+
 def _kth_present(t_row, active, k, n: int):
     """The k-th fastest delay among the clients present (0 when none is):
     the channel greedy deadline, k clipped to [1, min(k, present)].  The
@@ -204,11 +234,27 @@ def _kth_present(t_row, active, k, n: int):
     return torch.where(n_act > 0, kth, 0.0)
 
 
+def _shard_live_rows(live, parity_row, lo: int, hi: int) -> tuple:
+    """The masked kernel's ``live_rows`` for rows [lo, hi) of a padded
+    client axis.  The kernel reads ``live[1]`` rows of its last row and
+    ``live[0]`` of the others; unsharded, the last row is the fused coded
+    parity row (``parity_row``, None without one).  A shard whose last
+    row is the parity row keeps the pair, one without it reads
+    ``live[0]`` everywhere (zero padding rows need nothing), and one that
+    holds it elsewhere reads the larger count everywhere."""
+    lc, lp = live
+    if parity_row is None or not lo <= parity_row < hi:
+        return (lc, lc)
+    if parity_row == hi - 1:
+        return (lc, lp)
+    return (max(lc, lp),) * 2
+
+
 def build_step(static: dict):
     """One round ``step(consts, carry, inp) -> (carry, out)``.
 
     `static`: scheme (step kind), n, n_wait, l2, m, l, guard, fused,
-    fused_embed, channel, faults, stale.
+    fused_embed, channel, faults, stale, mesh.
     `consts`: gx (rows, L, q), gy (rows, L, c), gmask (rows, L), ret_tail
     (rows - n,); coded adds t_star () and active (n,) and, when unfused,
     par_x (u, q) / par_y (u, c), and when fused live_rows (l_max, u), the
@@ -237,6 +283,10 @@ def build_step(static: dict):
     replay) the carry grows the iterate the round started from,
     ``(theta, lr_scale, theta_prev)``, and the round takes a second masked
     sum at theta_prev over the stale rows (a second gradient launch).
+    With a ``mesh`` (`repro_torch.launch.mesh.ClientMesh`) the consts'
+    gx, gy and gmask are this rank's s rows of the padded client axis,
+    ret_tail runs to the padded length, and each masked sum covers the
+    rank's rows only, then `reduce_pair` sums the shards.
     ``out`` is ``(t_round, n_ret, n_masked, skipped)``, 0-dim tensors.
     """
     scheme = static["scheme"]
@@ -251,6 +301,7 @@ def build_step(static: dict):
     channel = static["channel"]
     faults = static["faults"]
     stale = static["stale"]
+    mesh = static["mesh"]
 
     def step(consts, carry, inp):
         if stale:
@@ -336,7 +387,13 @@ def build_step(static: dict):
                                       tail_bad[1:]])
             bad = torch.cat([bad_client, tail_bad])
 
-        def sum_at(th, ret_v):
+        def sum_at(th, ret_v, bad_v=bad):
+            if mesh is not None:
+                # this rank's rows of the padded client axis
+                s = consts["gx"].shape[0]
+                lo = mesh.rank * s
+                ret_v = ret_v[lo:lo + s]
+                bad_v = None if bad_v is None else bad_v[lo:lo + s]
             if fused_embed:
                 g = aggregation.fused_embed_client_gradients(
                     consts["gx"], consts["gy"], consts["omega"],
@@ -347,7 +404,10 @@ def build_step(static: dict):
                 g = aggregation.batched_client_gradients(
                     consts["gx"], consts["gy"], th, mask=gmask,
                     live_rows=consts.get("live_rows"))
-            return guard_and_sum(g, ret_v, guard, bad)
+            g_sum, n_masked = guard_and_sum(g, ret_v, guard, bad_v)
+            if mesh is not None and mesh.size > 1:
+                g_sum, n_masked = reduce_pair(mesh, g_sum, n_masked)
+            return g_sum, n_masked
 
         if stale:
             # stale-replay clients return their gradient at the PREVIOUS
@@ -458,7 +518,11 @@ class Experiment:
     delta (q,)) the fused_embed path's own draw from ``spec.rff``, and
     ``secure_masks`` = (x masks (P, u, q), y masks (P, u, c)), one a
     client pair, the secure-aggregation setup's own mask draws (see
-    ``repro_torch.carry``).
+    ``repro_torch.carry``).  ``mesh`` (an int or a
+    `repro_torch.launch.mesh.ClientMesh`) overrides ``spec.mesh`` and
+    shards the batched engine's client axis over ranks (see the module
+    docstring); its device (``cuda:{rank % device_count}``) is the
+    default one.
 
     Prefer the entrypoint ``repro_torch.api.build_experiment``.
     """
@@ -467,7 +531,7 @@ class Experiment:
                  nodes: Optional[list] = None,
                  rng: Optional[np.random.Generator] = None,
                  device=None, parity_generators=None, rff_draw=None,
-                 secure_masks=None):
+                 secure_masks=None, mesh=None):
         if not isinstance(spec, ExperimentSpec):
             raise TypeError(
                 f"spec must be an ExperimentSpec, got {type(spec).__name__}"
@@ -480,14 +544,17 @@ class Experiment:
                 "engine; build it with repro_torch.api.build_experiment, "
                 "which routes hier-active specs to "
                 "repro_torch.hier.HierExperiment")
-        missing = unsupported_features(spec)
-        if missing:
-            raise NotImplementedError(
-                "the PyTorch port does not support "
-                + "; ".join(missing) + " yet")
         self.spec = spec
         fl_cfg = spec.resolved_fl()      # delay-profile knobs applied
-        self.device = resolve_device(device)
+        self.mesh = self._resolve_mesh(spec.mesh if mesh is None else mesh)
+        if self.mesh is not None and not self.mesh.member:
+            raise ValueError(
+                f"rank {self.mesh.rank} is not one of the {self.mesh.size} "
+                "ranks of the client mesh; build the experiment on ranks "
+                f"0..{self.mesh.size - 1} only")
+        self.device = resolve_device(
+            self.mesh.device if device is None and self.mesh is not None
+            else device)
         self.alloc_backend = spec.alloc_backend
         self.engine = spec.engine
         self.fused_coded = spec.fused_coded
@@ -517,6 +584,10 @@ class Experiment:
                 raise ValueError(
                     f"scheme {self.scheme!r} needs the batched engine "
                     "(the legacy oracle has no adaptive schedule path)")
+            if self.mesh is not None:
+                raise NotImplementedError(
+                    "adaptive schemes do not support client-mesh "
+                    "sharding yet")
             if self.adapt_every < 1:
                 raise ValueError(
                     f"scheme {self.scheme!r} requires "
@@ -526,6 +597,12 @@ class Experiment:
                 # adaptation without declared dynamics runs on the exact
                 # static profile
                 self.channel = CHANNEL_PROFILES["static"]
+        if self.return_faults and self.mesh is not None:
+            # the spec refuses spec.mesh with return faults; this catches
+            # the build_experiment(..., mesh=...) override too
+            raise NotImplementedError(
+                "return-fault injection does not support client-mesh "
+                "sharding yet (crash/checkpoint faults are fine)")
         if (self.checkpoint_every > 0 and self.adaptive
                 and self.checkpoint_every % self.adapt_every != 0):
             raise ValueError(
@@ -536,6 +613,9 @@ class Experiment:
             raise NotImplementedError(
                 f"scheme {self.scheme!r} does not support fused_embed yet "
                 "(adaptive re-allocation assumes embedded tensors)")
+        if self.fused_embed and self.mesh is not None:
+            raise NotImplementedError(
+                "fused_embed does not support client-mesh sharding yet")
         self._trace_seed = fl_cfg.seed + 9973
         # trace-stream reservation cursor: a single run reserves one stream
         # index, a traced run_multi one per realization.  The reserved
@@ -600,6 +680,28 @@ class Experiment:
         self._step = None
         self._step_warm = False   # a block of the cached step has run
 
+    @staticmethod
+    def _resolve_mesh(mesh):
+        """None, or the `ClientMesh` of `mesh` (a rank count, through
+        `repro_torch.launch.mesh.make_client_mesh`, or a mesh object),
+        which must have the one axis ``"clients"``."""
+        if mesh is None:
+            return None
+        from repro_torch.launch.mesh import CLIENT_AXIS, make_client_mesh
+        if isinstance(mesh, int):
+            mesh = make_client_mesh(mesh)
+        if tuple(mesh.axis_names) != (CLIENT_AXIS,):
+            raise ValueError(
+                f"mesh must have exactly one axis named {CLIENT_AXIS!r}, "
+                f"got {mesh.axis_names}")
+        return mesh
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes checkpoints and journals: always,
+        and under a mesh on rank 0 only."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def _rff_params(self, spec: ExperimentSpec, rff_draw):
         """(Omega (d, q), delta (q,)) of the fused_embed path: `rff_draw`
         where given, else the port's own draw from ``spec.rff``."""
@@ -651,8 +753,13 @@ class Experiment:
         `l_target` pads the point axis to a common length, so that
         deployments with other per-client loads run through one step
         (`repro_torch.launch.sweep`); the padding is zero rows past the
-        live ones, which the round does not read."""
+        live ones, which the round does not read.  With a mesh the client
+        axis is zero-row padded to a multiple of its size and this rank
+        keeps its own rows (`_shard_rows`)."""
         gx, gy, gmask, tail = self.scheme_obj.grad_tensors(self, l_target)
+        pseudo = len(tail)
+        if self.mesh is not None:
+            gx, gy, gmask, tail, lo = self._shard_rows(gx, gy, gmask, tail)
         consts = {
             "gx": gx, "gy": gy, "gmask": gmask,
             "ret_tail": torch.tensor(tail, dtype=torch.float32,
@@ -662,7 +769,29 @@ class Experiment:
             consts["omega"] = self.omega
             consts["delta"] = self.delta
         consts.update(self.scheme_obj.extra_consts(self))
+        if self.mesh is not None and "live_rows" in consts:
+            consts["live_rows"] = _shard_live_rows(
+                consts["live_rows"], self.n if pseudo else None, lo,
+                lo + gx.shape[0])
         return consts
+
+    def _shard_rows(self, gx, gy, gmask, tail):
+        """This rank's rows of the client tensors, zero-padded (as the
+        reference's ``_pad_rows``) to a multiple of the mesh size: ``(gx,
+        gy, gmask, padded ret_tail, first row)``.  The rows are a copy, so
+        the full tensors are freed when the caller drops them."""
+        k = self.mesh.size
+        rows = gx.shape[0]
+        s = -(-rows // k)
+        tail = list(tail) + [0.0] * (s * k - rows)
+        lo = self.mesh.rank * s
+        live = max(0, min(rows - lo, s))
+
+        def take(t):
+            part = t.new_zeros((s,) + tuple(t.shape[1:]))
+            part[:live] = t[lo:lo + live]
+            return part
+        return take(gx), take(gy), take(gmask), tail, lo
 
     def step_static(self) -> dict:
         """Python-static step parameters matching `build_consts`."""
@@ -679,6 +808,7 @@ class Experiment:
             "channel": self.channel is not None,
             "faults": self.return_faults,
             "stale": self.stale_faults,
+            "mesh": self.mesh,
         }
 
     def scheme_params_estimator_kwargs(self) -> dict:
@@ -1114,11 +1244,28 @@ class Experiment:
     # ---------------------------------------------------- checkpoint/restore
     def save_state(self, path: str, state: RunState) -> str:
         """Checkpoint `state` atomically (`repro_torch.checkpoint.io`),
-        with this experiment's `ExperimentSpec` as JSON provenance."""
-        arrays, meta = pack_state(state)
-        meta["spec"] = self.spec.to_dict()
-        with obs_spans.span("checkpoint/save"):
-            return ckpt_io.save_state(path, arrays, meta)
+        with this experiment's `ExperimentSpec` as JSON provenance.
+        Under a mesh only rank 0 writes, and every rank then learns the
+        write's outcome (`ClientMesh.any_`, which also waits for it, so
+        each can restore the file): when it failed, every rank raises, so
+        the ranks stay in step through a caller's retry."""
+        failed = None
+        if self._writes:
+            try:
+                arrays, meta = pack_state(state)
+                meta["spec"] = self.spec.to_dict()
+                with obs_spans.span("checkpoint/save"):
+                    path = ckpt_io.save_state(path, arrays, meta)
+            except Exception as exc:       # raised below, on every rank
+                failed = exc
+        if self.mesh is not None and self.mesh.any_(failed is not None):
+            if failed is None:
+                raise RuntimeError(
+                    f"rank 0 of the client mesh failed to write checkpoint "
+                    f"{path!r}")
+        if failed is not None:
+            raise failed
+        return path
 
     def restore_state(self, path: str) -> RunState:
         """Load a `RunState` checkpoint (digest verified) onto this
@@ -1294,6 +1441,7 @@ class Experiment:
         ``<journal_dir>/events.jsonl`` at the same boundaries — on resume
         the journal is trimmed/regrown to match the restored state, so an
         interrupted run's journal is always extended, never corrupted.
+        Under a mesh only rank 0 writes the checkpoints and the journal.
         """
         if self.engine == "legacy":
             if checkpoint_dir is not None or resume:
@@ -1332,7 +1480,7 @@ class Experiment:
         if state is None:
             state = self.init_state(iterations, collect=eval_fn is not None)
         journal = None
-        if journal_dir is not None:
+        if journal_dir is not None and self._writes:
             from repro_torch.obs.events import RunJournal
             journal = RunJournal(journal_dir)
             # trim past the restored state (a journal ahead of a rolled-

@@ -38,11 +38,18 @@ and retries where the reference's does.  `health_report` summarizes all
 of it.
 
 The experiments run on the service's ``device`` (the GPU unless the
-caller asks for another); a client mesh is refused, as the port's
-`unsupported_features` refuses it.  A block's forced ``service/block``
-span covers its device work: `run_block` reads the block's per-round
-records back to the host, which waits for the card, and the span syncs
-the device once more before its clock stops.
+caller asks for another).  With a client ``mesh`` (a rank count or a
+`repro_torch.launch.mesh.ClientMesh`) every job is sharded over the first
+k ranks of the process group, as the reference's service passes its mesh
+to ``build_experiment``: every rank runs the same service, with the same
+submissions in the same order, and computes; only rank 0 writes the
+checkpoints, the journals (``events.jsonl``) and the corruption the chaos
+stream draws, and every rank reads the same root, so the ranks share it
+(a shared file system).  A checkpoint write that fails on rank 0 fails
+the block on every rank, so their retries stay in step.  A block's
+forced ``service/block`` span covers its device work: `run_block` reads
+the block's per-round records back to the host, which waits for the
+card, and the span syncs the device once more before its clock stops.
 """
 from __future__ import annotations
 
@@ -104,7 +111,10 @@ class ExperimentService:
     itself holds no state outside `self.runs` and the checkpoint root, so
     it is trivially restartable.
 
-    ``device`` is where every run's experiment lives (default the GPU).
+    ``device`` is where every run's experiment lives (default the GPU;
+    under a ``mesh``, the rank's card).  ``mesh`` (a rank count or a
+    `ClientMesh`) goes to every job's ``build_experiment``, which shards
+    its client axis over ranks (see the module docstring).
     Retry knobs: ``max_retries`` consecutive block failures quarantine a
     run; ``retry_backoff`` (seconds, default 0 so tests never sleep) is
     the base of the exponential backoff between attempts.  ``fault_seed``
@@ -118,16 +128,16 @@ class ExperimentService:
     def __init__(self, root: str, *, device=None, mesh=None,
                  max_retries: int = 3, retry_backoff: float = 0.0,
                  fault_seed: int = 0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the PyTorch port does not support client-mesh sharding "
-                "(mesh) yet")
         if max_retries < 0:
             raise ValueError(f"max_retries={max_retries} must be >= 0")
         if retry_backoff < 0:
             raise ValueError(f"retry_backoff={retry_backoff} must be >= 0")
         self.root = str(root)
-        self.device = resolve_device(device)
+        # the mesh goes to every build as given (the experiment resolves
+        # it), and under a mesh the experiment picks the rank's card
+        self.mesh = mesh
+        self.device = (None if device is None and mesh is not None
+                       else resolve_device(device))
         self.max_retries = int(max_retries)
         self.retry_backoff = float(retry_backoff)
         self.fault_seed = int(fault_seed)
@@ -166,7 +176,7 @@ class ExperimentService:
                 f"run {rid!r}: service jobs need spec.checkpoint_every > 0 "
                 "(a whole-horizon block would starve the other runs)")
         exp = build_experiment(spec, x_stack, y_stack, nodes=nodes, rng=rng,
-                               device=self.device,
+                               device=self.device, mesh=self.mesh,
                                parity_generators=parity_generators)
         ckpt_dir = os.path.join(self.root, rid)
         state = None
@@ -196,7 +206,8 @@ class ExperimentService:
         # with telemetry on, journal single-trajectory runs next to their
         # checkpoints (root/<run_id>/events.jsonl) — trimmed/regrown to
         # the restored state, so a resumed journal is extended in place
-        if obs_spans.enabled() and state.mode in ("single", "hier"):
+        if (obs_spans.enabled() and state.mode in ("single", "hier")
+                and getattr(exp, "_writes", True)):   # hier: no mesh
             run.journal = RunJournal(ckpt_dir)
             run.journal.reset_to(state.rounds_done)
             run.journal.sync(exp, state)
@@ -239,7 +250,7 @@ class ExperimentService:
                     f"rounds_done={run.state.rounds_done} "
                     f"(attempt {run.retries + 1})")
         with obs_spans.span("service/block", force=True,
-                            sync=self.device) as sp_block:
+                            sync=run.exp.device) as sp_block:
             run.state = run.exp.run_block(run.state, eval_fn=run.eval_fn,
                                           eval_every=run.eval_every)
         run.blocks_run += 1
@@ -251,7 +262,8 @@ class ExperimentService:
                              f"{run.state.rounds_done:06d}.npz"),
                 run.state)
         run.ckpt_save_seconds += sp_save.elapsed_s
-        if chaos is not None and u_ckpt < faults.ckpt_corrupt_prob:
+        if (chaos is not None and u_ckpt < faults.ckpt_corrupt_prob
+                and getattr(run.exp, "_writes", True)):
             corrupt_checkpoint(path, kind=faults.ckpt_corrupt_kind,
                                rng=chaos)
         if run.journal is not None:

@@ -546,7 +546,15 @@ def test_spec_round_trip_and_registry_match_reference():
     assert t_api.get_scheme("adaptive_coded").coded
     with pytest.raises(NotImplementedError, match="not adaptive"):
         t_api.get_scheme("coded").replan(None, None)
-    assert not t_config.unsupported_features(specs[1])
+    # with a client mesh both packages refuse the adaptive spec alike
+    xs, ys = _data()
+    msgs = []
+    for spec, api, extra in ((specs[0], ref_api, {}),
+                             (specs[1], t_api, {"device": "cpu"})):
+        with pytest.raises(NotImplementedError, match="client-mesh") as info:
+            api.build_experiment(spec, xs, ys, mesh=1, **extra)
+        msgs.append(str(info.value))
+    assert msgs[1] == msgs[0]
 
 
 # ------------------------------------------------------ the example's port

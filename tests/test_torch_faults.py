@@ -258,13 +258,23 @@ def test_api_exports_the_fault_profiles():
 
 
 def test_service_faults_on_a_mesh_are_accepted_then_mesh_refused():
-    """crash/checkpoint faults are fine on a mesh (the reference's rule);
-    the port then refuses the mesh alone at build."""
-    spec = _spec(t_config, fault_profile="crash_loop", mesh=2)
-    assert t_config.unsupported_features(spec) == \
-        ["client-mesh sharding (mesh)"]
-    with pytest.raises(NotImplementedError, match="client-mesh"):
-        _port(spec)
+    """crash/checkpoint faults are fine on a mesh (the reference's rule):
+    both packages make the spec.  In one process (one JAX device, no
+    process group) both then refuse mesh=2 with the same ValueError, and
+    both build and run mesh=1 alike."""
+    xs, ys = _data()
+    msgs = []
+    for mod, build in ((ref_config, lambda s: ref_api.build_experiment(
+            s, xs, ys)), (t_config, _port)):
+        with pytest.raises(ValueError, match="device") as info:
+            build(_spec(mod, fault_profile="crash_loop", mesh=2))
+        msgs.append(str(info.value))
+    assert msgs[1].split(" (")[0] == msgs[0].split(" (")[0]
+    ref_exp = ref_api.build_experiment(
+        _spec(ref_config, fault_profile="crash_loop", mesh=1), xs, ys)
+    port_exp = _port(_spec(t_config, fault_profile="crash_loop", mesh=1),
+                     ref_exp.u)
+    _same_rounds(port_exp.run(ROUNDS), ref_exp.run(ROUNDS))
 
 
 # --------------------------------------------------------------- draws

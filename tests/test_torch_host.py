@@ -9,15 +9,20 @@ subsets, returned counts and wall clock equal the reference's.
 import dataclasses
 import json
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import api as ref_api
 from repro import config as ref_config
 from repro.core import delay_model as ref_dm
+from repro.core import encoding as ref_enc
 from repro.core import load_allocation as ref_la
 from repro.core import privacy as ref_privacy
 from repro.core import rff as ref_rff
+from repro.core import secure_agg as ref_sa
 from repro.data import sharding as ref_sharding
 from repro.data import synthetic as ref_synthetic
 
@@ -27,6 +32,7 @@ from repro_torch.core import delay_model as t_dm
 from repro_torch.core import load_allocation as t_la
 from repro_torch.core import privacy as t_privacy
 from repro_torch.core import rff as t_rff
+from repro_torch.core import secure_agg as t_sa
 from repro_torch.data import sharding as t_sharding
 from repro_torch.data import synthetic as t_synthetic
 from repro_torch.device import resolve_device
@@ -168,55 +174,117 @@ def test_spec_round_trip_matches_reference(kw):
         **dataclasses.asdict(ref_spec.resolved_fl()))
 
 
-# (id, spec fields, the feature the refusal names, a ported feature it
-# must no longer name): the ported ones ride along with the one missing
-# feature, the client mesh.  The hierarchical tier is ported; with a mesh
-# the spec itself refuses it, with the reference's ValueError
+# (id, spec fields): the client mesh with each feature it once rode along
+# with, when the port refused the mesh.  Each case now takes the
+# reference's own outcome for the same spec in the same process (one JAX
+# device, no process group): mesh=2 raises the reference's ValueError
+# ("device"); mesh=1, in the spec or as the build_experiment override,
+# builds and runs as the reference does, or raises the reference's type
+# and message (hier, fused_embed, adaptive)
 _UNSUPPORTED = [
-    ("channel dynamics", dict(channel_profile="static", mesh=2),
-     "client-mesh", "channel"),
-    ("fault injection", dict(fault_profile="crash_loop", mesh=2),
-     "client-mesh", "fault injection"),
-    ("hierarchical", dict(hier_shards=2, mesh=2), "not a device mesh",
-     "hierarchical tier (hier_shards"),
-    ("client-mesh", dict(mesh=2), "client-mesh", None),
-    ("secure aggregation", dict(secure_aggregation=True, mesh=2),
-     "client-mesh", "secure aggregation"),
-    ("adaptive", dict(scheme="adaptive_coded", adapt_every=2, mesh=2),
-     "client-mesh", "adaptive"),
-    # fused_embed combines with neither missing feature (a spec refuses it
-    # with a mesh or the hierarchical tier): the mesh refusal alone
-    ("fused_embed", dict(mesh=2), "client-mesh", "fused_embed"),
-    ("fused_coded=False", dict(fused_coded=False, mesh=2), "client-mesh",
-     "fused_coded"),
-    ("legacy", dict(engine="legacy", mesh=2), "client-mesh", "legacy"),
+    ("channel dynamics", dict(channel_profile="static", mesh=2)),
+    ("fault injection", dict(fault_profile="crash_loop", mesh=2)),
+    ("hierarchical", dict(hier_shards=2, mesh=2)),
+    ("client-mesh", dict(mesh=2)),
+    ("secure aggregation", dict(secure_aggregation=True, mesh=2)),
+    ("adaptive", dict(scheme="adaptive_coded", adapt_every=2, mesh=2)),
+    ("fused_embed", dict(fused_embed=True, mesh=2)),
+    ("fused_coded=False", dict(fused_coded=False, mesh=2)),
+    ("legacy", dict(engine="legacy", mesh=2)),
 ]
+_MESH_N, _MESH_L, _MESH_Q, _MESH_C = 4, 6, 8, 2
 
 
-@pytest.mark.parametrize("kw,feature,ported",
-                         [case[1:] for case in _UNSUPPORTED],
-                         ids=[case[0] for case in _UNSUPPORTED])
-def test_unsupported_feature_raises_at_build(kw, feature, ported):
-    if kw.get("hier_shards", 1) > 1:
-        # refused when the spec is made, in both packages, as the
-        # reference refuses it; the tier itself is no missing feature
-        for mod in (ref_config, t_config):
-            with pytest.raises(ValueError, match=feature):
-                mod.ExperimentSpec(fl=mod.FLConfig(n_clients=4), **kw)
-        spec = t_config.ExperimentSpec(fl=t_config.FLConfig(n_clients=4),
-                                       hier_shards=2)
-        assert t_config.unsupported_features(spec) == []
-        assert ported not in " ".join(t_config.unsupported_features(
-            t_config.ExperimentSpec(mesh=2)))
+def _mesh_draws(u):
+    """The reference's coded draws of a `_mesh_outcome` deployment (seed
+    0): the generator split chain from PRNGKey(99) and the secure pair
+    masks from PRNGKey(1234), for the port to take over."""
+    def chain(key, _):
+        key, sub = jax.random.split(key)
+        return key, sub
+    _, keys = jax.lax.scan(chain, jax.random.PRNGKey(99), None,
+                           length=_MESH_N)
+    gens = np.asarray(jax.vmap(
+        lambda k: ref_enc.generator_matrix(k, u, _MESH_L))(keys))
+    like = ref_enc.LocalParity(x=jnp.zeros((u, _MESH_Q), jnp.float32),
+                               y=jnp.zeros((u, _MESH_C), jnp.float32))
+    key = jax.random.PRNGKey(1234)
+    masks = [ref_sa._mask_like(ref_sa._pair_key(key, i, j), like, 1.0)
+             for i, j in t_sa.pairs(_MESH_N)]
+    return gens, (np.stack([np.asarray(m.x) for m in masks]),
+                  np.stack([np.asarray(m.y) for m in masks]))
+
+
+def _mesh_outcome(mod, api, kw, override, extra):
+    """("built", 3-round result, experiment) of making the spec, building
+    it with ``mesh=override`` and running it, or (exception type name,
+    message) where one of them raises."""
+    rng = np.random.default_rng(1)
+    xs = rng.normal(size=(_MESH_N, _MESH_L, _MESH_Q)).astype(np.float32)
+    xs *= 0.3
+    theta_true = rng.normal(size=(_MESH_Q, _MESH_C)).astype(np.float32)
+    ys = np.einsum("nlq,qc->nlc", xs, theta_true).astype(np.float32)
+    kw = dict(kw)
+    if kw.get("fused_embed"):
+        kw["rff"] = mod.RFFConfig(q=_MESH_Q)
+    try:
+        spec = mod.ExperimentSpec(
+            fl=mod.FLConfig(n_clients=_MESH_N),
+            train=mod.TrainConfig(learning_rate=0.05), **kw)
+        exp = api.build_experiment(spec, xs, ys, mesh=override,
+                                   **extra(spec, xs, ys))
+    except (ValueError, NotImplementedError) as exc:
+        return type(exc).__name__, str(exc)
+    return "built", exp.run(3), exp
+
+
+def _port_extra(spec, xs, ys):
+    """The port's build arguments: the CPU, and the reference's coded
+    draws where the flat engine's coded scheme makes them."""
+    extra = {"device": "cpu"}
+    if spec.hier_active or spec.resolved_scheme != "coded":
+        return extra
+    u = t_api.build_experiment(dataclasses.replace(spec, mesh=None), xs, ys,
+                               device="cpu").u
+    gens, masks = _mesh_draws(u)
+    extra["parity_generators"] = gens
+    if spec.secure_aggregation:
+        extra["secure_masks"] = masks
+    return extra
+
+
+def _same_outcome(ref, port):
+    assert port[0] == ref[0]
+    if ref[0] != "built":
+        assert port[1] == ref[1].replace("repro.hier", "repro_torch.hier")
         return
-    spec = t_config.ExperimentSpec(fl=t_config.FLConfig(n_clients=4), **kw)
-    xs = np.zeros((4, 6, 8), np.float32)
-    ys = np.zeros((4, 6, 2), np.float32)
-    with pytest.raises(NotImplementedError, match=feature) as info:
-        t_api.build_experiment(spec, xs, ys, device="cpu")
-    if ported is not None:
-        assert ported not in str(info.value)
-        assert ported not in " ".join(t_config.unsupported_features(spec))
+    want, got = ref[1], port[1]
+    assert [h.wall_clock for h in got.history] == \
+        [h.wall_clock for h in want.history]
+    assert [h.returned for h in got.history] == \
+        [h.returned for h in want.history]
+    np.testing.assert_allclose(got.theta.numpy(), np.asarray(want.theta),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [case[1] for case in _UNSUPPORTED],
+                         ids=[case[0] for case in _UNSUPPORTED])
+def test_unsupported_feature_raises_at_build(kw):
+    # mesh=2 in one process: the reference's ValueError, the same words up
+    # to the hint on how to get more devices (or the spec's own refusal)
+    ref = _mesh_outcome(ref_config, ref_api, kw, None, lambda *a: {})
+    port = _mesh_outcome(t_config, t_api, kw, None, _port_extra)
+    assert port[0] == ref[0] == "ValueError"
+    assert port[1].split(" (")[0] == ref[1].split(" (")[0]
+    if kw.get("hier_shards", 1) == 1 and not kw.get("fused_embed"):
+        assert "device" in port[1]
+    # mesh=1 in the spec, then as the override
+    for spec_mesh, override in ((1, None), (None, 1)):
+        over = dict(kw, mesh=spec_mesh)
+        _same_outcome(
+            _mesh_outcome(ref_config, ref_api, over, override,
+                          lambda *a: {}),
+            _mesh_outcome(t_config, t_api, over, override, _port_extra))
 
 
 _PORTED = [
@@ -238,7 +306,6 @@ _PORTED = [
 def test_ported_features_build_and_run(kw):
     spec = t_config.ExperimentSpec(fl=t_config.FLConfig(n_clients=4),
                                    **kw)
-    assert t_config.unsupported_features(spec) == []
     rng = np.random.default_rng(1)
     xs = rng.normal(size=(4, 6, 8)).astype(np.float32)
     ys = rng.normal(size=(4, 6, 2)).astype(np.float32)

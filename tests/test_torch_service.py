@@ -272,11 +272,29 @@ def test_service_multi_realization_job(tmp_path):
 
 
 def test_service_refuses_a_mesh_and_defaults_to_the_gpu(tmp_path):
-    with pytest.raises(NotImplementedError, match="client-mesh"):
-        ExperimentService(str(tmp_path), device="cpu", mesh=2)
-    svc = _service(tmp_path)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _submit(svc, _spec(t_config, mesh=2), 8, "m")
+    """The reference's outcome in one process (one JAX device, no process
+    group): a service takes mesh=2 and its submit refuses it with the
+    reference's ValueError, as does a spec's own mesh=2; with mesh=1 a job
+    runs as the unmeshed one."""
+    xs, ys = _data()
+    msgs = []
+    for svc, spec, kw in (
+            (RefService(str(tmp_path / "ref"), mesh=2), _spec(ref_config),
+             {}),
+            (_service(tmp_path / "port", mesh=2), _spec(t_config),
+             {"parity_generators": _gens(_spec(t_config))})):
+        with pytest.raises(ValueError, match="device") as info:
+            svc.submit(spec, xs, ys, 8, run_id="m", **kw)
+        msgs.append(str(info.value))
+    assert msgs[1].split(" (")[0] == msgs[0].split(" (")[0]
+    with pytest.raises(ValueError, match="device"):
+        _submit(_service(tmp_path / "spec"), _spec(t_config, mesh=2), 8, "m")
+    svc = _service(tmp_path / "one", mesh=1)
+    _submit(svc, _spec(t_config), 8, "m")
+    got = svc.run_until_complete()["m"]
+    want = _port_solo(_spec(t_config), 8)
+    assert torch.equal(got.theta, want.theta)
+    assert t_api.histories_equal(got.history, want.history)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ExperimentService(str(tmp_path))
