@@ -265,7 +265,21 @@ Phases, each printed as one JSON object per line:
              full-width jamba gradient at 128 positions (F4 read as a
              measurement), and train(federated=True) on deepseek's smoke
              variant against the host replay of its delay draws;
- 29. kernel: each kernel against its plain PyTorch version on the card, at
+ 29. dryrun: the compile driver (repro_torch.launch.dryrun), each
+             combination of DRYRUN_RUNS in a subprocess of its own, side by
+             side (a fake process group of 256 or 512 ranks must not live
+             in this process), the mesh on the card's device type, records
+             under the git-ignored build/chip_smoke_dryrun: a decode, a
+             train_4k at full width (traced at 1 and 2 layers and scaled,
+             --scaled-depth) and a --multi-pod long-context decode; each
+             record's per-rank FLOPs, bytes, collective bytes, memory and
+             trace seconds.  On the card, in a fresh process beside them:
+             rank 0's local parameter shards of the train combination
+             allocated on cuda:0 grow torch.cuda.memory_allocated by the
+             record's parameter bytes, each shard rounded up to the
+             allocator's 512-byte block (and the allocator's requested
+             bytes by exactly those bytes);
+ 30. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
              tile multiple; times with CUDA events.  linreg_grad_masked at
@@ -305,7 +319,7 @@ Phases, each printed as one JSON object per line:
              by events, on the device (device_ms, library_device_ms) and on
              the host (host_ms: the wrapper's enqueue), beside SDPA with its
              mask made once outside the timed calls;
- 30. the kernels table, then the final line
+ 31. the kernels table, then the final line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Each path phase sets every launch count to 0 just before it drives its
@@ -354,6 +368,38 @@ OBS_EVERY = 5             # checkpoint_every of the telemetry and service jobs
 TELEMETRY_PAIRS = 3       # spans-off / spans-on warm runs timed in turns
 REPORT_LINES = 14         # first lines of render_report printed
 SERVICE_DROP_AFTER = 3    # service steps before the drop
+# the dryrun phase: (arch, shape, extra flags) of each compile-driver
+# subprocess, the bound on all of them, their records under build/
+DRYRUN_RUNS = (("qwen3-4b", "decode_32k", ()),
+               ("qwen3-4b", "train_4k", ("--scaled-depth",)),
+               ("rwkv6-1.6b", "long_500k", ("--multi-pod",)))
+DRYRUN_TIMEOUT_S = 240.0
+DRYRUN_DIR = CKPT_DIR.parent / "chip_smoke_dryrun"
+DRYRUN_POLICY = "fsdp_tp"         # the driver's default, which the runs take
+# the card check, in a process of its own: rank 0's local parameter shards
+# of an arch under a policy allocated on cuda:0; prints what they grew
+DRYRUN_CARD_CHECK = r"""
+import json, math, sys
+import torch
+from repro_torch.configs import get_config
+from repro_torch.models.model_zoo import build
+from repro_torch.sharding import policy as sh
+shards = sh.param_shards(build(get_config(sys.argv[1])).abstract_params(),
+                         sys.argv[2])
+nbytes = [math.prod(shape) * dtype.itemsize for _, shape, dtype in shards]
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+alloc0 = torch.cuda.memory_allocated(dev)
+req0 = torch.cuda.memory_stats(dev).get("requested_bytes.all.current", 0)
+held = [torch.empty(shape, dtype=dtype, device=dev)
+        for _, shape, dtype in shards]
+print(json.dumps({
+    "shards": len(shards), "param_bytes": sum(nbytes),
+    "allocated_growth": torch.cuda.memory_allocated(dev) - alloc0,
+    "rounded_512": sum(-(-n // 512) * 512 for n in nbytes),
+    "requested_growth": torch.cuda.memory_stats(dev)[
+        "requested_bytes.all.current"] - req0}))
+"""
 # the mesh phase: the main path's deployment on the first k ranks of one
 # spawned group, k in MESH_RANKS, each of MESH_RUNS; its inputs under the
 # git-ignored build/
@@ -4462,6 +4508,80 @@ def train_path(torch, dev, state) -> None:
               "part_seconds": time.perf_counter() - t0})
 
 
+def dryrun_path(torch, dev, state) -> None:
+    """The compile driver in subprocesses, side by side, and beside them
+    the card check of the train combination's parameter shards in a
+    fresh process (its allocator holds nothing else, so every shard's
+    block is its size rounded up to 512 bytes)."""
+    import os
+    import shutil
+
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    train_arch = next(a for a, shape, _ in DRYRUN_RUNS if shape == "train_4k")
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for arch, shape, extra in DRYRUN_RUNS:
+            out = DRYRUN_DIR / f"{arch}_{shape}"
+            procs.append((arch, shape, out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--out-dir", str(out),
+                 *extra], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, env=env)))
+        card = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CARD_CHECK, train_arch,
+             DRYRUN_POLICY], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env)
+        procs.append(("card check", "", None, card))
+        runs = []
+        for arch, shape, out, proc in procs:
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            log, _ = proc.communicate(timeout=max(left, 1.0))
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"dryrun {arch} {shape}: exit "
+                  f"{proc.returncode}: {log[-3000:]}")
+            if out is None:
+                card_check = json.loads(log.strip().splitlines()[-1])
+                continue
+            files = sorted(out.glob("*.json"))
+            check(len(files) == 1, f"dryrun {arch} x {shape}: "
+                  f"{len(files)} records")
+            runs.append((json.loads(files[0].read_text()), wall))
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    line = []
+    for rec, wall in runs:
+        check(rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
+              and rec["memory_analysis"]["temp_size_in_bytes"] > 0,
+              f"dryrun {rec['arch']} x {rec['shape']}: empty counts")
+        line.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "policy", "chips", "flops_per_device",
+            "bytes_per_device", "collective_bytes_per_device",
+            "memory_analysis", "argument_bytes", "compile_seconds",
+            "layers_traced", "device_type")}
+            | {"redistributions": sum(r["count"]
+                                      for r in rec["redistributions"]),
+               "done_after_s": wall})
+    rec = next(r for r, _ in runs if r["shape"] == "train_4k")
+    check(rec["policy"] == DRYRUN_POLICY, f"dryrun: {rec['policy']}")
+    check(card_check["param_bytes"] == rec["argument_bytes"]["params"],
+          f"dryrun: shards of {card_check['param_bytes']} bytes, the "
+          f"record's {rec['argument_bytes']['params']}")
+    check(card_check["allocated_growth"] == card_check["rounded_512"],
+          f"dryrun: {card_check['shards']} shards grew the card's allocated "
+          f"bytes by {card_check['allocated_growth']}, rounded "
+          f"{card_check['rounded_512']}")
+    check(card_check["requested_growth"] == card_check["param_bytes"],
+          f"dryrun: requested {card_check['requested_growth']} bytes for "
+          f"{card_check['param_bytes']}")
+    emit({"phase": "dryrun", "runs": line,
+          "card_check": {"arch": rec["arch"], **card_check}})
+
+
 def gqa_checks(torch, dev, state) -> dict:
     """gqa_decode against its plain version at the serving shape (bf16 and
     float32) and at edge shapes; kernel, plain, SDPA and bound times."""
@@ -5312,7 +5432,8 @@ def main() -> int:
                   quickstart_path, channel_path, adaptive_path, faults_path,
                   secure_agg_path, sweep_path, telemetry_path, service_path,
                   hier_path, hier_scale_path, bench_path, serve_path,
-                  serve_check, serve_cpu, families_path, train_path):
+                  serve_check, serve_cpu, families_path, train_path,
+                  dryrun_path):
         t0 = time.perf_counter()
         phase(torch, dev, state)
         emit({"phase": phase.__name__, "seconds": time.perf_counter() - t0})

@@ -31,7 +31,9 @@ them into the port's tensors:
     reference's pytree (layers stacked again), NumPy arrays, and
     `reference_layout`, that tree's key paths and shapes without reading
     a weight (``repro_torch.checkpoint.io`` writes and checks the
-    reference's param-tree files with them).
+    reference's param-tree files with them);
+  * `cache_layout`: the key paths, shapes and dtypes of the reference's
+    cache tree of a port cache (the compile driver's abstract cache).
 
 This module imports neither ``jax`` nor ``repro``: the caller does the
 drawing.
@@ -216,6 +218,37 @@ def reference_layout(params) -> dict:
         else:
             out[key] = (tuple(leaf.shape), leaf.dtype)
     return out
+
+
+def _cache_leaves(cache, cfg) -> dict:
+    """{reference key path: the tensors it stacks, one a layer} of a port
+    cache (a list with one dict a layer) of the model of `cfg`, in the
+    reference's tree order: ``stage{si}/l{i}/{attn|mla|rwkv|mamba}/<leaf>``
+    for a decoder stack, ``k``, ``v``, ``pos``, ``xk``, ``xv`` for the
+    enc-dec one."""
+    from repro_torch.models import transformer
+
+    if cfg.is_encdec:
+        return {name: [c[name] for c in cache] for name in cache[0]}
+    out = {}
+    first = 0
+    for si, (pattern, count) in enumerate(transformer.stages(cfg)):
+        n = len(pattern)
+        for i, (mixer, _) in enumerate(pattern):
+            layers = [cache[first + c * n + i] for c in range(count)]
+            for name in layers[0]:
+                out[f"stage{si}/l{i}/{mixer}/{name}"] = [
+                    c[name] for c in layers]
+        first += n * count
+    return out
+
+
+def cache_layout(cache, cfg) -> dict:
+    """{key path of the reference's cache tree: (shape, torch dtype)} of a
+    port cache (also one on the ``meta`` device, ``Model.abstract_cache``):
+    the cache's counterpart of `reference_layout`, the layer axis first."""
+    return {key: ((len(ts),) + tuple(ts[0].shape), ts[0].dtype)
+            for key, ts in _cache_leaves(cache, cfg).items()}
 
 
 def _host(t) -> np.ndarray:

@@ -22,7 +22,8 @@ with the reference's message, and the fields are checked in the
 reference's order, so a spec with two faults names the same one.
 
 The model zoo's configurations (``ModelConfig`` and its family blocks,
-``ShapeConfig``, ``SHAPES``) are copied field for field as well; the
+``ShapeConfig``, ``SHAPES``) and the compile driver's ``MeshConfig`` are
+copied field for field as well; the
 architectures themselves live in ``repro_torch.configs``.
 """
 from __future__ import annotations
@@ -137,6 +138,19 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:

@@ -1,10 +1,13 @@
-"""Architecture registry: --arch <id> -> ModelConfig, and reduced smoke
-variants.  The data modules beside this file are copies of the reference's
+"""Architecture registry: --arch <id> -> ModelConfig, reduced smoke
+variants, and the input specs (meta tensors) of every assigned input
+shape.  The data modules beside this file are copies of the reference's
 ``repro.configs``, field for field."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.config import SHAPES, ModelConfig, ShapeConfig
 
@@ -57,6 +60,44 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         updates["swa_window"] = 32
     updates["dtype"] = "float32"        # CPU smoke runs in f32
     return dataclasses.replace(cfg, **updates)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig | str,
+                batch_override: int | None = None, device="meta") -> dict:
+    """Stand-ins for the step function's `batch` argument: tensors with
+    the reference's shapes and dtypes on `device` (``meta`` by default:
+    no storage).
+
+    train/prefill: int32 token batch (+ modality stubs in the config's
+    dtype; the VLM prefix's patches counted in the sequence length),
+    train adds the labels.  decode: one new token.
+    """
+    from repro_torch.models.common import dtype_of
+
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+
+    def f(sh, dt=torch.int32):
+        return torch.empty(sh, dtype=dt, device=device)
+
+    emb_dt = dtype_of(cfg)
+    if shape.kind == "decode":
+        return {"tokens": f((B, 1))}
+    batch = {}
+    if cfg.is_encdec:
+        batch["frames"] = f((B, cfg.encoder_seq, cfg.d_model), emb_dt)
+        batch["tokens"] = f((B, S))
+    elif cfg.n_prefix_patches:
+        batch["patch_embeds"] = f((B, cfg.n_prefix_patches, cfg.d_model),
+                                  emb_dt)
+        batch["tokens"] = f((B, S - cfg.n_prefix_patches))
+    else:
+        batch["tokens"] = f((B, S))
+    if shape.kind == "train":
+        batch["labels"] = f(tuple(batch["tokens"].shape))
+    return batch
 
 
 def decode_window(cfg: ModelConfig, shape: ShapeConfig | str) -> int:

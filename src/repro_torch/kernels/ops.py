@@ -2,7 +2,9 @@
 
 Each wrapper takes the layout of the function of the same name in
 ``repro.kernels.ops``.  For tensors on the CPU it runs the plain PyTorch
-version (``repro_torch.kernels.ref``).  For CUDA tensors it checks device,
+version (``repro_torch.kernels.ref``), and so does ``gqa_decode`` for
+tensors on the ``meta`` device (the compile driver traces decode steps
+there).  For CUDA tensors it checks device,
 dtype, shape and contiguity, allocates the outputs with ``torch.empty``,
 launches the hand-written CUDA kernel on the current stream and raises if
 the launch fails; there is no fallback.  Any other device raises.
@@ -77,15 +79,17 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _on_cuda(name: str, *tensors, dtype=torch.float32) -> bool:
-    """False for all-CPU inputs (plain path); True for CUDA inputs that the
-    kernel takes; raises for anything else.  ``dtype=None`` leaves the
-    dtype check to the caller."""
+def _on_cuda(name: str, *tensors, dtype=torch.float32,
+             meta: bool = False) -> bool:
+    """False for all-CPU inputs (plain path), and with `meta` for inputs
+    on the ``meta`` device (shapes only: the plain path computes the
+    output's shape); True for CUDA inputs that the kernel takes; raises for
+    anything else.  ``dtype=None`` leaves the dtype check to the caller."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {devices}")
     (device,) = devices
-    if device.type == "cpu":
+    if device.type == "cpu" or (meta and device.type == "meta"):
         return False
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
@@ -465,7 +469,9 @@ def gqa_decode(q, k, v, k_pos, q_pos: int, window: int = 0):
     a combine pass, partials in ``torch.empty`` scratch)."""
     name = "gqa_decode"
     q_pos, window = int(q_pos), int(window)
-    if not _on_cuda(name, q, k, v, k_pos, dtype=None):
+    # meta inputs (the compile driver's trace of a decode step) take the
+    # plain version: its ops give the output's shape and the step's counts
+    if not _on_cuda(name, q, k, v, k_pos, dtype=None, meta=True):
         return ref.gqa_decode(q, k, v, k_pos, q_pos, window)
     symbol = _GQA_SYMBOLS.get(q.dtype)
     if symbol is None or k.dtype != q.dtype or v.dtype != q.dtype:

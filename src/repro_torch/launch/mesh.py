@@ -26,8 +26,13 @@ deadline on the join, and every survivor terminated when one rank fails.
 has a card of its own, gloo otherwise (NCCL refuses two ranks of one
 communicator on one GPU; gloo stages CUDA tensors through the host).
 
-``make_production_mesh`` belongs to the compile driver and is not ported
-here.
+`make_production_mesh` is the compile driver's mesh
+(``repro_torch.launch.dryrun``): a ``DeviceMesh`` over the default
+process group, a logical mesh of 256 ranks (data 16 x model 16) or 512
+(pod 2 x data 16 x model 16), the sizes the sharding policies' divisibility
+rules are written against (``repro_torch.sharding.policy.AXIS_SIZE``).
+The dry run builds it over a fake process group, where no rank but this
+one exists.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["CLIENT_AXIS", "ClientMesh", "default_backend",
+           "make_production_mesh",
            "make_client_mesh", "spawn"]
 
 #: name of the client-partitioned mesh axis
@@ -94,6 +100,26 @@ class ClientMesh:
     def barrier(self) -> None:
         """Wait until every rank of the mesh gets here."""
         self.any_(False)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The production mesh over the default process group: (data=16,
+    model=16), 256 ranks, or with `multi_pod` (pod=2, data=16, model=16),
+    512 ranks.  The group must have exactly that many ranks; the card's
+    device type is the default (the tests pass ``"cpu"``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 512 if multi_pod else 256
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != need:
+        raise ValueError(
+            f"the {'x'.join(map(str, shape))} production mesh needs a "
+            f"default process group of {need} ranks (256 single-pod, 512 "
+            f"multi-pod), got {world or 'none'}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def _cuda_device(rank: int) -> Optional[torch.device]:

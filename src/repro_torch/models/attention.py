@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -75,24 +76,51 @@ def _out(p, out):
         H * hd_v, D)
 
 
+def tile_pairs(q_pos, k_pos, window: int, chunk: int = 512) -> np.ndarray:
+    """(n_q, n_k) bool on the host: which (`chunk`-row query tile,
+    `chunk`-slot KV chunk) pairs of a causal `_flash` hold any valid slot.
+    q_pos (S,), k_pos (T,) int NumPy positions (-1 for an empty slot).  A
+    slot t is valid for row s where 0 <= k_pos[t] <= q_pos[s] and, with a
+    window, k_pos[t] > q_pos[s] - window: per chunk, the count of its
+    valid positions inside each row's interval, by binary search over the
+    chunk's sorted positions."""
+    q_pos = np.asarray(q_pos, dtype=np.int64)
+    k_pos = np.asarray(k_pos, dtype=np.int64)
+    S, T = q_pos.shape[0], k_pos.shape[0]
+    n_q, n_k = -(-S // chunk), -(-T // chunk)
+    lo = q_pos - window if window > 0 else np.full(S, -1, dtype=np.int64)
+    lo = np.maximum(lo, -1)                  # k_pos > lo, so k_pos >= 0
+    rows = np.zeros((n_k, n_q * chunk), dtype=bool)
+    for j in range(n_k):
+        kp = np.sort(k_pos[j * chunk:(j + 1) * chunk])
+        hit = (np.searchsorted(kp, q_pos, side="right")
+               - np.searchsorted(kp, lo, side="right")) > 0
+        rows[j, :S] = hit
+    return rows.reshape(n_k, n_q, chunk).any(axis=2).T
+
+
 def _flash(q, k, v, q_pos, k_pos, window: int, chunk: int = 512,
-           causal: bool = True):
+           causal: bool = True, host_pos=None):
     """Online-softmax attention, plain PyTorch: prefill (S > 1), and the
     encoder's and the cross-attention's (``causal=False``, any S).
 
     q: (B, S, H, hd); k, v: (B, T, K, hd / hd_v); q_pos (S,), k_pos (T,)
     int global positions (-1 for an empty slot) -> (B, S, H, hd_v) in q's
     dtype.  The reference's recurrence over `chunk`-slot KV chunks, taken
-    for `chunk`-row query tiles in turn; a KV chunk with no valid slot for
-    any row of a tile is skipped, which changes no value (for a row that
-    has a valid slot somewhere, such a chunk has weight exp(-1e30 - m) = 0;
-    a causal row always has one, its own position).  Under autograd a
-    skipped chunk changes no gradient either: its weights are exactly 0.
-    The tile list read back to the host is a function of the positions
-    alone, so a recompute in the backward skips the same chunks.  With
-    ``causal=False`` a slot is valid wherever its position is >= 0 (and
-    inside the window), and no chunk is skipped: a row without a valid
-    slot averages v over every slot, as the reference's does.
+    for `chunk`-row query tiles in turn and concatenated; a KV chunk with
+    no valid slot for any row of a tile is skipped, which changes no value
+    (for a row that has a valid slot somewhere, such a chunk has weight
+    exp(-1e30 - m) = 0; a causal row always has one, its own position).
+    Under autograd a skipped chunk changes no gradient either: its weights
+    are exactly 0.  The tile list (`tile_pairs`) is a function of the
+    positions alone, computed on the host from `host_pos`, the positions
+    as NumPy arrays (q_pos, k_pos), which the train and prefill callers
+    make from host integers (read back from the device where a caller
+    gives none), so a recompute in the backward skips the same chunks and
+    a trace on the ``meta`` device needs no value.  With ``causal=False``
+    a slot is valid wherever its position is >= 0 (and inside the window),
+    and no chunk is skipped: a row without a valid slot averages v over
+    every slot, as the reference's does.
     """
     B, S, H, hd = q.shape
     T, K, hd_v = k.shape[1], k.shape[2], v.shape[-1]
@@ -107,17 +135,14 @@ def _flash(q, k, v, q_pos, k_pos, window: int, chunk: int = 512,
         valid = valid & (k_pos[None, :] <= q_pos[:, None])
     if window > 0:
         valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
-    out = torch.empty((B, S, H, hd_v), dtype=q.dtype, device=q.device)
     n_q, n_k = -(-S // chunk), -(-T // chunk)
     if causal:
-        # which (query tile, KV chunk) pairs hold any valid slot: one
-        # host read
-        tiles = torch.zeros((n_q * chunk, n_k * chunk), dtype=torch.bool,
-                            device=q.device)
-        tiles[:S, :T] = valid
-        pairs = tiles.reshape(n_q, chunk, n_k, chunk).any(3).any(1).cpu()
+        if host_pos is None:
+            host_pos = (q_pos.cpu().numpy(), k_pos.cpu().numpy())
+        pairs = tile_pairs(*host_pos, window, chunk)
     else:
-        pairs = torch.ones((n_q, n_k), dtype=torch.bool)
+        pairs = np.ones((n_q, n_k), dtype=bool)
+    outs = []
     for i in range(n_q):
         s0, s1 = i * chunk, min(S, (i + 1) * chunk)
         q_i = qr[:, :, s0:s1].reshape(B, K, (s1 - s0) * G, hd)
@@ -143,9 +168,9 @@ def _flash(q, k, v, q_pos, k_pos, window: int, chunk: int = 512,
             acc = acc * corr[..., None] + pv.reshape(B, K, s1 - s0, G, hd_v)
             m = m_new
         o = acc / torch.clamp(l, min=1e-30)[..., None]      # (B, K, s, G, hd_v)
-        out[:, s0:s1] = o.permute(0, 2, 1, 3, 4).reshape(
-            B, s1 - s0, H, hd_v).to(q.dtype)
-    return out
+        outs.append(o.permute(0, 2, 1, 3, 4).reshape(
+            B, s1 - s0, H, hd_v).to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def _attend_single(q, k, v, q_pos: int, k_pos, window: int):
@@ -154,8 +179,11 @@ def _attend_single(q, k, v, q_pos: int, k_pos, window: int):
     return ops.gqa_decode(q[:, 0], k, v, k_pos, q_pos, window)[:, None]
 
 
-def attn_train(p, x, positions, cfg, window: int = 0, freqs=None):
-    """Full-sequence causal attention.  x: (B, S, D), positions: (S,) int.
+def attn_train(p, x, positions, cfg, window: int = 0, freqs=None,
+               host_pos=None):
+    """Full-sequence causal attention.  x: (B, S, D), positions: (S,) int;
+    `host_pos` the positions as a NumPy array, if the caller has them
+    (`_flash`'s tile list).
 
     The attention itself is recomputed in the backward instead of saving
     the per-chunk online-softmax state (the reference's flash backward)."""
@@ -163,8 +191,13 @@ def attn_train(p, x, positions, cfg, window: int = 0, freqs=None):
     k, v = _project_kv(p, x, positions[None, :], cfg, freqs)
     win = window if window else cfg.swa_window
     out = checkpoint(_flash, q, k, v, positions, positions, win,
-                     use_reentrant=False)
+                     host_pos=_pair(host_pos), use_reentrant=False)
     return _out(p, out)
+
+
+def _pair(host_pos):
+    """(q positions, k positions) of a self-attention's host positions."""
+    return None if host_pos is None else (host_pos, host_pos)
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype, window: int = 0,
@@ -179,14 +212,17 @@ def init_cache(cfg, batch: int, max_seq: int, dtype, window: int = 0,
     }
 
 
-def attn_prefill(p, x, positions, cfg, cache, window: int = 0, freqs=None):
+def attn_prefill(p, x, positions, cfg, cache, window: int = 0, freqs=None,
+                 host_pos=None):
     """Full forward over the prompt; fills the cache in place.
     x: (B, S, D), positions: (S,) int; `freqs`: the rope frequencies on
-    x's device, if the caller holds them.  Returns (out, cache)."""
+    x's device, if the caller holds them; `host_pos` the positions as a
+    NumPy array, if it has them.  Returns (out, cache)."""
     q = _project_q(p, x, positions[None, :], cfg, freqs)
     k, v = _project_kv(p, x, positions[None, :], cfg, freqs)
     win = window if window else cfg.swa_window
-    out = _flash(q, k, v, positions, positions, win)
+    out = _flash(q, k, v, positions, positions, win,
+                 host_pos=_pair(host_pos))
     S = x.shape[1]
     slots = cache["k"].shape[1]
     if slots >= S:

@@ -24,13 +24,14 @@ and `decode_step` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.models.attention import _flash, _heads, _out
+from repro_torch.models.attention import _flash, _heads, _out, _pair
 from repro_torch.models.common import (dense_init, dtype_of, embed_init,
                                        frozen_params, generator, rms_norm,
                                        sinusoidal_positions,
@@ -177,16 +178,18 @@ def init_cache(cfg, batch: int, max_seq: int, window: int = 0,
 
 
 def dec_layer(cfg, layer, x, enc_out, cache, *, positions=None, pos=None,
-              window: int = 0):
+              window: int = 0, host_pos=None):
     """One decoder layer: train with `positions` (S,) and no cache (the
     cross K/V from `enc_out`), prefill with `positions` (fills `cache`,
     the cross K/V from `enc_out`), or decode with int `pos` (the cross K/V
-    from the cache).  Returns x."""
+    from the cache).  `host_pos`: the positions as a NumPy array, if the
+    caller has them (the self-attention's tile list).  Returns x."""
     p = layer.self_attn
     h = rms_norm(x, layer.ln1, cfg.norm_eps)
     q, k, v = _qkv(p, h)
     if positions is not None:
-        o = _flash(q, k, v, positions, positions, window)
+        o = _flash(q, k, v, positions, positions, window,
+                   host_pos=_pair(host_pos))
         if cache is not None:
             S = x.shape[1]
             slots = cache["k"].shape[1]
@@ -229,12 +232,14 @@ def dec_layer(cfg, layer, x, enc_out, cache, *, positions=None, pos=None,
 
 
 def _dec_inputs(cfg, params, tokens):
-    """Token embeddings plus sinusoidal positions, and the positions."""
+    """Token embeddings plus sinusoidal positions, and the positions (a
+    tensor, and the same as a NumPy array)."""
     dev = params.embed.device
     x = F.embedding(tokens.long().to(dev), params.embed)
     S = x.shape[1]
     x = x + sinusoidal_positions(S, cfg.d_model, dev).to(x.dtype)[None]
-    return x, torch.arange(S, dtype=torch.int32, device=dev)
+    return (x, torch.arange(S, dtype=torch.int32, device=dev),
+            np.arange(S, dtype=np.int32))
 
 
 def loss_fn(cfg, params, batch, window: int = 0, remat: bool = True,
@@ -244,15 +249,15 @@ def loss_fn(cfg, params, batch, window: int = 0, remat: bool = True,
     auxiliary loss); with `remat` each decoder layer is recomputed in the
     backward.  `chunked` is the decoder-only models' switch, unused."""
     enc_out = encode(cfg, params, batch["frames"])
-    x, positions = _dec_inputs(cfg, params, batch["tokens"])
+    x, positions, host = _dec_inputs(cfg, params, batch["tokens"])
     for layer in params.dec:
         if remat:
             x = checkpoint(dec_layer, cfg, layer, x, enc_out, None,
                            positions=positions, window=window,
-                           use_reentrant=False)
+                           host_pos=host, use_reentrant=False)
         else:
             x = dec_layer(cfg, layer, x, enc_out, None, positions=positions,
-                          window=window)
+                          window=window, host_pos=host)
     x = rms_norm(x, params.dec_norm, cfg.norm_eps)
     logits = x @ params.lm_head
     labels = batch["labels"].to(x.device)
@@ -277,13 +282,13 @@ def prefill(cfg, params, batch, window: int = 0,
     logits (B, V), cache); the cache has `cache_len` self-attention slots
     (default S), those past S at position -1."""
     enc_out = encode(cfg, params, batch["frames"])
-    x, positions = _dec_inputs(cfg, params, batch["tokens"])
+    x, positions, host = _dec_inputs(cfg, params, batch["tokens"])
     B, S = x.shape[:2]
     cache = init_cache(cfg, B, S if cache_len is None else cache_len,
                        window, x.device)
     for layer, c in zip(params.dec, cache):
         x = dec_layer(cfg, layer, x, enc_out, c, positions=positions,
-                      window=window)
+                      window=window, host_pos=host)
     x = rms_norm(x, params.dec_norm, cfg.norm_eps)
     return x[:, -1, :] @ params.lm_head, cache
 

@@ -22,7 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
-from repro_torch.models.attention import _flash, _heads, _out
+from repro_torch.models.attention import _flash, _heads, _out, _pair
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
 
 
@@ -67,14 +67,17 @@ def _decompress(p, c, k_pe, cfg):
     return torch.cat([k_nope, k_pe_b], dim=-1), v
 
 
-def mla_train(p, x, positions, cfg, window: int = 0, freqs=None):
-    """Full-sequence causal MLA.  x: (B, S, D), positions: (S,) int.
-    Returns out (B, S, D)."""
+def mla_train(p, x, positions, cfg, window: int = 0, freqs=None,
+              host_pos=None):
+    """Full-sequence causal MLA.  x: (B, S, D), positions: (S,) int
+    (`host_pos` as a NumPy array, if the caller has them).  Returns out
+    (B, S, D)."""
     q = _q_proj(p, x, positions[None, :], cfg, freqs)
     c, k_pe = _latent(p, x, positions[None, :], cfg, freqs)
     k, v = _decompress(p, c, k_pe, cfg)
     win = window if window else cfg.swa_window
     out = checkpoint(_flash, q, k, v, positions, positions, win,
+                     host_pos=_pair(host_pos),
                      use_reentrant=False)                  # kv heads == H
     return _out(p, out)
 
@@ -91,14 +94,17 @@ def init_mla_cache(cfg, batch: int, max_seq: int, dtype, window: int = 0,
                               device=device)}
 
 
-def mla_prefill(p, x, positions, cfg, cache, window: int = 0, freqs=None):
-    """Full forward over the prompt; fills the latent cache in place.
+def mla_prefill(p, x, positions, cfg, cache, window: int = 0, freqs=None,
+                host_pos=None):
+    """Full forward over the prompt; fills the latent cache in place
+    (`host_pos`: the positions as a NumPy array, if the caller has them).
     Returns (out (B, S, D), cache)."""
     q = _q_proj(p, x, positions[None, :], cfg, freqs)
     c, k_pe = _latent(p, x, positions[None, :], cfg, freqs)
     k, v = _decompress(p, c, k_pe, cfg)
     win = window if window else cfg.swa_window
-    out = _flash(q, k, v, positions, positions, win)
+    out = _flash(q, k, v, positions, positions, win,
+                 host_pos=_pair(host_pos))
     S = x.shape[1]
     slots = cache["c"].shape[1]
     if slots >= S:

@@ -1,7 +1,8 @@
 """Uniform Model facade over the decoder-only stack and the
 encoder-decoder stack (the counterpart of ``repro.models.model_zoo``).
 Every family serves (`prefill`, `decode_step`) and trains (`loss_fn`,
-`abstract_params`)."""
+`abstract_params`); `abstract_params` and `abstract_cache` build on the
+``meta`` device for the compile driver."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,6 +21,12 @@ class Model:
     prefill: Callable          # (params, batch, window=0, cache_len=None)
     decode_step: Callable      # (params, cache, tokens, pos, window=0)
     init_cache: Callable       # (batch, max_seq, window=0, device=None)
+
+    def abstract_cache(self, batch: int, max_seq: int, window: int = 0):
+        """The cache of `init_cache` on the ``meta`` device: shapes and
+        dtypes, no storage (the counterpart of the reference's
+        ``eval_shape`` of its ``init_cache``)."""
+        return self.init_cache(batch, max_seq, window, device="meta")
 
 
 def build(cfg) -> Model:

@@ -31,6 +31,7 @@ reference's ``loss + aux``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -110,9 +111,10 @@ class Layer(nn.Module):
                 self.ffn_key: getattr(self, self.ffn_key)}
 
     def forward(self, x, cfg, cache, freqs, *, positions=None, pos=None,
-                window: int = 0, chunked: bool = True):
+                window: int = 0, chunked: bool = True, host_pos=None):
         """Train (no cache; `positions` (S,)), prefill (a cache and
-        `positions`) or decode (a cache and int `pos`).  Returns (x, aux):
+        `positions`) or decode (a cache and int `pos`); `host_pos` the
+        positions as a NumPy array (attention's tile list).  Returns (x, aux):
         aux the MoE FFN's load-balance value (a float32 scalar), None for
         the other FFNs.  In train mode a recurrent mixer starts from a
         zero state made here (the reference's fresh state), so a
@@ -132,19 +134,20 @@ class Layer(nn.Module):
         if mixer == "attn":
             if train:
                 out = attention.attn_train(p, h, positions, cfg, window,
-                                           freqs)
+                                           freqs, host_pos)
             elif prefill:
                 out, _ = attention.attn_prefill(p, h, positions, cfg, cache,
-                                                window, freqs)
+                                                window, freqs, host_pos)
             else:
                 out, _ = attention.attn_decode(p, h, pos, cfg, cache, window,
                                                freqs)
         elif mixer == "mla":
             if train:
-                out = mla.mla_train(p, h, positions, cfg, window, freqs)
+                out = mla.mla_train(p, h, positions, cfg, window, freqs,
+                                    host_pos)
             elif prefill:
                 out, _ = mla.mla_prefill(p, h, positions, cfg, cache, window,
-                                         freqs)
+                                         freqs, host_pos)
             else:
                 out, _ = mla.mla_decode(p, h, pos, cfg, cache, window, freqs)
         elif mixer == "rwkv":
@@ -300,16 +303,19 @@ def _run_layers(cfg, params, x, window: int, remat: bool, chunked: bool):
     """Every layer over the whole sequence, no cache (the "train" mode);
     with `remat` each layer is recomputed in the backward.  Returns (x,
     the MoE layers' load-balance values summed in layer order, float32)."""
+    host = np.arange(x.shape[1], dtype=np.int32)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.layers:
         if remat:
             x, a = checkpoint(layer, x, cfg, None, params.rope_freqs,
                               positions=positions, window=window,
-                              chunked=chunked, use_reentrant=False)
+                              chunked=chunked, host_pos=host,
+                              use_reentrant=False)
         else:
             x, a = layer(x, cfg, None, params.rope_freqs,
-                         positions=positions, window=window, chunked=chunked)
+                         positions=positions, window=window, chunked=chunked,
+                         host_pos=host)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -360,12 +366,13 @@ def prefill(cfg, params, batch, window: int = 0, cache_len: int | None = None,
     chunked forms where the reference's would."""
     x = _inputs_embeds(cfg, params, batch)
     B, S = x.shape[0], x.shape[1]
+    host = np.arange(S, dtype=np.int32)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     cache = init_cache(cfg, B, S if cache_len is None else cache_len, window,
                        x.device)
     for layer, c in zip(params.layers, cache):
         x, _ = layer(x, cfg, c, params.rope_freqs, positions=positions,
-                     window=window, chunked=chunked)
+                     window=window, chunked=chunked, host_pos=host)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits(cfg, params, x[:, -1, :]), cache
 
