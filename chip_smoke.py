@@ -269,16 +269,23 @@ Phases, each printed as one JSON object per line:
              combination of DRYRUN_RUNS in a subprocess of its own, side by
              side (a fake process group of 256 or 512 ranks must not live
              in this process), the mesh on the card's device type, records
-             under the git-ignored build/chip_smoke_dryrun: a decode, a
-             train_4k at full width (traced at 1 and 2 layers and scaled,
-             --scaled-depth) and a --multi-pod long-context decode; each
-             record's per-rank FLOPs, bytes, collective bytes, memory and
-             trace seconds.  On the card, in a fresh process beside them:
-             rank 0's local parameter shards of the train combination
-             allocated on cuda:0 grow torch.cuda.memory_allocated by the
-             record's parameter bytes, each shard rounded up to the
-             allocator's 512-byte block (and the allocator's requested
-             bytes by exactly those bytes);
+             under the git-ignored build/chip_smoke_dryrun: qwen3-4b's
+             decode and train_4k at full width (traced at 1 and 2 layers
+             and scaled, --scaled-depth), rwkv6's --multi-pod long-context
+             decode, mixtral's decode (the MoE dispatch's routed
+             index_copy_), deepseek's and rwkv6's train_4k, scaled (the
+             routed index_add and scatter of the MoE backward, the
+             cumsum backward's flip); each record's per-rank FLOPs,
+             bytes, collective bytes, memory, trace seconds and routed
+             ops, the FLOPs and each kind of collective bytes held within
+             1e-3 relative to DRYRUN_FIGURES, the figures the CPU tests
+             hold on another torch version (the traces run with the card
+             hidden: host work only).  On the card, in a fresh process
+             beside them: rank 0's local parameter shards of the train
+             combination allocated on cuda:0 grow
+             torch.cuda.memory_allocated by the record's parameter bytes,
+             each shard rounded up to the allocator's 512-byte block (and
+             the allocator's requested bytes by exactly those bytes);
  30. kernel: each kernel against its plain PyTorch version on the card, at
              the main path's shapes (its own inputs; gqa_decode at the
              serving shape) and at edge shapes one below, at and one above a
@@ -372,7 +379,36 @@ SERVICE_DROP_AFTER = 3    # service steps before the drop
 # subprocess, the bound on all of them, their records under build/
 DRYRUN_RUNS = (("qwen3-4b", "decode_32k", ()),
                ("qwen3-4b", "train_4k", ("--scaled-depth",)),
-               ("rwkv6-1.6b", "long_500k", ("--multi-pod",)))
+               ("rwkv6-1.6b", "long_500k", ("--multi-pod",)),
+               ("mixtral-8x7b", "decode_32k", ()),
+               ("deepseek-v2-lite-16b", "train_4k", ("--scaled-depth",)),
+               ("rwkv6-1.6b", "train_4k", ("--scaled-depth",)))
+# (arch, shape): each run's flops_per_device and its non-zero
+# collective_bytes_per_device (the mesh on the cuda device type), taken by
+# the driver on torch 2.13 on a CPU and held by
+# tests/test_torch_dryrun_figures.py; the card's records must agree within
+# DRYRUN_REL whatever its torch version
+DRYRUN_FIGURES = {
+    ("qwen3-4b", "decode_32k"): (22179414016.0, {
+        "all-gather": 21138112512, "all-reduce": 176103424}),
+    ("qwen3-4b", "train_4k"): (705730235596800.0, {
+        "all-gather": 195928391680, "all-reduce": 73575441416,
+        "reduce-scatter": 71147520}),
+    ("rwkv6-1.6b", "long_500k"): (181534720.0, {
+        "all-gather": 170364928, "all-reduce": 305436}),
+    ("mixtral-8x7b", "decode_32k"): (240129146880.0, {
+        "all-gather": 8328380416, "all-reduce": 251725824}),
+    ("deepseek-v2-lite-16b", "train_4k"): (1184674386804736.0, {
+        "all-gather": 3325166583808, "all-reduce": 3404841108488,
+        "reduce-scatter": 43804672}),
+    ("rwkv6-1.6b", "train_4k"): (53398254649344.0, {
+        "all-gather": 785958928384, "all-reduce": 210480125960,
+        "reduce-scatter": 80658432, "all-to-all": 5108137984}),
+}
+DRYRUN_REL = 1e-3
+# the traces' own environment: host work only, so the card is hidden from
+# them (no CUDA context a process; the mesh keeps the cuda device type)
+DRYRUN_ENV = {"CUDA_VISIBLE_DEVICES": ""}
 DRYRUN_TIMEOUT_S = 240.0
 DRYRUN_DIR = CKPT_DIR.parent / "chip_smoke_dryrun"
 DRYRUN_POLICY = "fsdp_tp"         # the driver's default, which the runs take
@@ -4528,7 +4564,7 @@ def dryrun_path(torch, dev, state) -> None:
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
                  "--arch", arch, "--shape", shape, "--out-dir", str(out),
                  *extra], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True, env=env)))
+                text=True, env=env | DRYRUN_ENV)))
         card = subprocess.Popen(
             [sys.executable, "-c", DRYRUN_CARD_CHECK, train_arch,
              DRYRUN_POLICY], stdout=subprocess.PIPE,
@@ -4555,16 +4591,25 @@ def dryrun_path(torch, dev, state) -> None:
                 proc.wait()
     line = []
     for rec, wall in runs:
+        tag = f"dryrun {rec['arch']} x {rec['shape']}"
         check(rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
               and rec["memory_analysis"]["temp_size_in_bytes"] > 0,
-              f"dryrun {rec['arch']} x {rec['shape']}: empty counts")
+              f"{tag}: empty counts")
+        flops, coll = DRYRUN_FIGURES[(rec["arch"], rec["shape"])]
+        got = rec["collective_bytes_per_device"]
+        for name, have, want in [("flops", rec["flops_per_device"], flops),
+                                 *((k, got[k], coll.get(k, 0))
+                                   for k in sorted(got))]:
+            check(abs(have - want) <= DRYRUN_REL * abs(want),
+                  f"{tag}: {name} {have}, the figure {want}")
         line.append({k: rec[k] for k in (
             "arch", "shape", "mesh", "policy", "chips", "flops_per_device",
             "bytes_per_device", "collective_bytes_per_device",
             "memory_analysis", "argument_bytes", "compile_seconds",
-            "layers_traced", "device_type")}
+            "layers_traced", "device_type", "routed")}
             | {"redistributions": sum(r["count"]
                                       for r in rec["redistributions"]),
+               "routed_calls": sum(rec["routed"].values()),
                "done_after_s": wall})
     rec = next(r for r, _ in runs if r["shape"] == "train_4k")
     check(rec["policy"] == DRYRUN_POLICY, f"dryrun: {rec['policy']}")

@@ -32,10 +32,10 @@ What the record's numbers mean (one rank, rank 0, of the mesh):
     shapes.  ``FlopCounterMode`` around DTensor would count each op at
     its global shape.
   * ``bytes_per_device``: for every local op that moves data (views,
-    ``empty`` and the collectives' waits excluded), the bytes of its
-    tensor inputs, each read once, plus those of its outputs, each
-    written once.  No op is fused, so this is an upper bound of what a
-    compiler's fused program would move.
+    ``_unsafe_view``, ``empty`` and the collectives' waits excluded), the
+    bytes of its tensor inputs, each read once, plus those of its
+    outputs, each written once.  No op is fused, so this is an upper
+    bound of what a compiler's fused program would move.
   * ``collective_bytes_per_device``: the result bytes of each collective
     this rank issues, under the reference's five HLO names (torch's
     functional collectives mapped onto them: `COLLECTIVE_OPS`).
@@ -54,10 +54,19 @@ rules differ from XLA's partitioner: DTensor picks each op's strategy by
 its own redistribution costs, and it refuses a view that splits an
 unevenly sharded dim.  At such a view the driver replicates the input's
 sharded mesh dims, innermost first, until the view goes through
-(`ViewFallback`), and it steps in at a few more places where DTensor
+(`DispatchRoutes`), and it steps in at a few more places where DTensor
 cannot go on by itself (`Redistributor`); each place is recorded under
-``redistributions``, and the model's math is not changed for any.  Plain tensors made inside the layers
-(rope frequencies, zero states, positions) are replicated
+``redistributions``, and the model's math is not changed for any.  The
+counts do not depend on the installed torch (2.11 and 2.13 agree): no op
+goes through a DTensor mechanism that only some versions have (an op
+that some version's DTensor has no sharding strategy for takes the
+driver's own route, `ROUTED`; the record counts the calls under
+``routed``), and wherever versions would choose differently the driver
+chooses (partial sums reduced where they are made, in the backward too;
+pointwise operands placed alike; each gradient brought to its
+parameter's placements; every redistribution one mesh dim at a time).
+Plain tensors made inside the layers (rope frequencies, zero states,
+positions) are replicated
 (``implicit_replication``).  A decode step's attention goes through the
 plain version of the ``gqa_decode`` kernel on ``meta`` (the record says
 so under ``decode_attention``).  The reference's
@@ -89,6 +98,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._dtensor_spec import DTensorSpec, TensorMeta
+from torch.distributed.tensor._redistribute import redistribute_local_tensor
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import implicit_replication
@@ -128,7 +139,11 @@ COLLECTIVE_OPS = {
 _COLLECTIVE_NOOPS = {"_c10d_functional.wait_tensor",
                      "_c10d_functional._wrap_tensor_autograd"}
 _COLLECTIVE_NAMESPACES = ("_c10d_functional", "_dtensor", "c10d")
-_NO_BYTES = {"aten.empty", "aten.empty_strided", "aten.empty_like"}
+# ops that move no data: allocations, and a view by another name (DTensor
+# runs a reshape's local op as `_unsafe_view` in some torch versions and
+# as `view` in others)
+_NO_BYTES = {"aten.empty", "aten.empty_strided", "aten.empty_like",
+             "aten._unsafe_view"}
 
 
 def _tensors(obj):
@@ -277,8 +292,8 @@ def _reduced(out):
     if not isinstance(out, DTensor) or not any(
             isinstance(p, Partial) for p in out.placements):
         return out
-    return out.redistribute(out.device_mesh, [
-        Replicate() if isinstance(p, Partial) else p for p in out.placements])
+    return _brought(out, [Replicate() if isinstance(p, Partial) else p
+                          for p in out.placements])
 
 
 def _lookup(name, args, kwargs):
@@ -349,8 +364,9 @@ class Redistributor(TorchFunctionMode):
     decode step, hundreds of GB a rank).  `fsdp` maps the ids of those
     parameters to the ``data`` mesh dim; gathers are not recorded.
 
-    A view DTensor refuses is `ViewFallback`'s, at the dispatcher, where
-    the backward's views pass too."""
+    A view DTensor refuses, an op some DTensor version has no strategy
+    for, and a partial sum a backward op makes are `DispatchRoutes`'s, at
+    the dispatcher, where the backward's ops pass too."""
 
     def __init__(self, places: Places, fsdp=()):
         super().__init__()
@@ -369,7 +385,7 @@ class Redistributor(TorchFunctionMode):
         if not isinstance(a, DTensor) or all(
                 isinstance(p, Replicate) for p in a.placements):
             return a
-        y = a.redistribute(a.device_mesh, [Replicate()] * a.device_mesh.ndim)
+        y = _brought(a, [Replicate()] * a.device_mesh.ndim)
         self.places.add(name, a, y)
         return y
 
@@ -405,28 +421,69 @@ class Redistributor(TorchFunctionMode):
         return func(*args, **kwargs)
 
 
-class ViewFallback(TorchDispatchMode):
-    """Where DTensor refuses or fails a view (one that splits an unevenly
-    sharded dim, or a shard that does not align with the new dims: a
-    256-way shard of the B * S rows viewed as (B, S) gives a local view of
-    the wrong size), or where the view gives a strided shard (a merge of
-    sharded dims, whose every later redistribution DTensor plans by a
-    graph search, ~1 s each on the 2x16x16 mesh), the input's sharded
-    mesh dims are replicated, innermost first, one more at a time, until
-    the view goes through to plain placements; each place recorded in
-    `places`.  It sits above `StepCounter`, so the redistribution's
-    collectives and the view's local ops are counted; views of the
-    backward pass come here too."""
+class DispatchRoutes(TorchDispatchMode):
+    """The driver's routes at the dispatcher, where the backward's ops pass
+    too.  It sits above `StepCounter`, so the collectives of each
+    redistribution and the local ops are counted.
+
+      * A view DTensor refuses or fails (one that splits an unevenly
+        sharded dim, or a shard that does not align with the new dims: a
+        256-way shard of the B * S rows viewed as (B, S) gives a local
+        view of the wrong size), or a view that gives a strided shard (a
+        merge of sharded dims, whose every later redistribution DTensor
+        plans by a graph search, ~1 s each on the 2x16x16 mesh): the
+        input's sharded mesh dims are replicated, innermost first, one
+        more at a time, until the view goes through to plain placements;
+        each place recorded in `places`.
+      * An op of `ROUTED` (one that some torch version's DTensor has no
+        sharding strategy for) never reaches DTensor's sharding
+        propagation: its operands are brought to the placements its rule
+        names, the op runs on the local tensors, and its result takes the
+        rule's placements (`_route`); each call counted in `routed`, each
+        operand it moved recorded in `places`.
+      * A pointwise op whose operands disagree on a mesh dim takes them
+        placed alike (`_pointwise_pinned`): a replicated operand sharded
+        as another is (a local slice: no collective), where a torch
+        version might gather the sharded one instead; operands sharded
+        on different dims as the first one is.
+      * A result that is a partial sum is reduced where it is made
+        (all-reduce), as a tensor-parallel layer reduces its output and
+        its input's gradient: in the forward (and a checkpointed layer's
+        recompute) over every mesh dim, in the backward over ``model``
+        only.  A partial sum over the batch's mesh dims in the backward
+        is a weight's gradient, summed over the batch: the FSDP gather's
+        backward reduce-scatters it, the update brings the rest to their
+        parameters' placements (`_grad`, `build_step`).  DTensor would
+        carry each partial sum on and choose, op by op and differently
+        in each torch version, where to reduce it (a product of a partial
+        gradient with a gathered weight runs whole on every rank; the
+        update of a replicated weight leaves it partial)."""
 
     def __init__(self, places: Places):
         super().__init__()
         self.places = places
+        self.routed: dict[str, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         name = f"{func.namespace}.{func._overloadpacket.__name__}"
-        if name not in _VIEW_OPS or not isinstance(args[0], DTensor):
+        if not any(issubclass(t, DTensor) for t in types):
             return func(*args, **kwargs)
+        if name in ROUTED:
+            self.routed[name] = self.routed.get(name, 0) + 1
+            return _route(name, func, args, kwargs, self.places)
+        if name in _VIEW_OPS and isinstance(args[0], DTensor):
+            out = self._view(name, func, args, kwargs)
+        else:
+            if torch.Tag.pointwise in func.tags:
+                args = _pointwise_pinned(args, func._schema.is_mutable)
+            out = func(*args, **kwargs)
+        if func._schema.is_mutable or func.is_view:
+            return out        # an alias of an operand: reduced where made
+        return _partials_reduced(out, model_only=_BACKWARD[0] > 0
+                                 and not torch.is_grad_enabled())
+
+    def _view(self, name, func, args, kwargs):
         err = None
         try:
             out = func(*args, **kwargs)
@@ -440,7 +497,7 @@ class ViewFallback(TorchDispatchMode):
             if place[m].is_replicate() or place[m].is_partial():
                 continue
             place[m] = Replicate()
-            y = x.redistribute(x.device_mesh, place)
+            y = _moved(x, place)
             try:
                 out = func(y, *args[1:], **kwargs)
             except RuntimeError:
@@ -452,6 +509,253 @@ class ViewFallback(TorchDispatchMode):
         if err is not None:
             raise err
         return out
+
+
+#: > 0 inside `_grad`: the backward (where grad mode is off)
+_BACKWARD = [0]
+
+
+def _partials_reduced(out, model_only: bool):
+    """`out` with its partial sums reduced (replicated) over every mesh
+    dim, or over ``model`` only, also in a tuple or list; anything else
+    as it is."""
+    if isinstance(out, (tuple, list)):
+        return type(out)(_partials_reduced(o, model_only) for o in out)
+    if not isinstance(out, DTensor):
+        return out
+    names = out.device_mesh.mesh_dim_names
+    return _moved(out, [Replicate() if p.is_partial() and (
+        not model_only or names[m] == sh.MODEL) else p
+        for m, p in enumerate(out.placements)])
+
+
+def _pointwise_pinned(args, inplace: bool) -> tuple:
+    """The DTensor operands of a pointwise op (every one but the first of
+    an in-place op) placed alike on each mesh dim where they disagree and
+    none is a partial sum: where one operand shards a dim of the
+    broadcast shape, an operand replicated there and spanning that dim
+    whole is sharded alike (a local slice); where operands shard
+    different dims, each takes the first operand's shard (or is
+    replicated, where the first is or where it spans the dim only by
+    broadcasting)."""
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if len(dts) < 2:
+        return args
+    nd = max(a.ndim for a in dts)
+    shape = torch.broadcast_shapes(*(tuple(a.shape) for a in dts))
+    mesh = dts[0].device_mesh
+    new = {}
+    for m in range(mesh.ndim):
+        ps = [a.placements[m] for a in dts]
+        if any(p.is_partial() for p in ps):
+            continue
+        dims = {p.dim + nd - a.ndim for a, p in zip(dts, ps)
+                if isinstance(p, Shard)}
+        if not dims:
+            continue
+        one = len(dims) == 1
+        d = next(iter(dims)) if one else (
+            ps[0].dim + nd - dts[0].ndim if isinstance(ps[0], Shard)
+            else None)
+        for i, (a, p) in enumerate(zip(dts, ps)):
+            if inplace and a is args[0]:
+                continue
+            ld = None if d is None else d - (nd - a.ndim)
+            if ld is not None and ld >= 0 and a.shape[ld] == shape[d]:
+                want = Shard(ld)
+            elif one:
+                continue          # spans the dim by broadcasting: as it is
+            else:
+                want = Replicate()
+            if p != want:
+                new.setdefault(i, list(a.placements))[m] = want
+    if not new:
+        return args
+    out, i = [], 0
+    for a in args:
+        if isinstance(a, DTensor):
+            if i in new:
+                a = _moved(a, new[i])
+            i += 1
+        out.append(a)
+    return tuple(out)
+
+
+def _brought(a, place):
+    """DTensor `a` redistributed to `place` one mesh dim at a time, in
+    order (no call where it is there): each step one collective or none,
+    whatever plan a torch version's redistribution would make of them
+    together."""
+    for m, p in enumerate(place):
+        if a.placements[m] != p:
+            step = list(a.placements)
+            step[m] = p
+            a = a.redistribute(a.device_mesh, step)
+    return a
+
+
+def _moved(a, place):
+    """`_brought` for the dispatcher's routes: each step on the local
+    tensor (``redistribute_local_tensor``, the collectives
+    ``DTensor.redistribute`` makes) and wrapped anew, outside autograd
+    (below it, where a route runs, autograd records nothing; in the
+    backward, torch 2.11's autograd would ``detach_`` a redistribution's
+    result that views its input, an op DTensor has no strategy for)."""
+    for m, p in enumerate(place):
+        if a.placements[m] != p:
+            step = list(a.placements)
+            step[m] = p
+            local = redistribute_local_tensor(
+                a._local_tensor, a._spec, _spec(a.device_mesh, step,
+                                                a._spec.tensor_meta))
+            a = _wrapped(local, a.device_mesh, step, a._spec.tensor_meta)
+    return a
+
+
+def _spec(mesh, place, meta) -> DTensorSpec:
+    return DTensorSpec(mesh, tuple(place), tensor_meta=meta)
+
+
+def _wrapped(local, mesh, place, meta):
+    """A DTensor of `local` with `place` and global `meta` (shape,
+    stride, dtype), made directly, outside autograd."""
+    return DTensor(local, _spec(mesh, place, meta), requires_grad=False)
+
+
+def _as_dtensor(t, mesh):
+    """A plain tensor as the replicated DTensor implicit replication makes
+    of it; anything else as it is."""
+    if not isinstance(t, torch.Tensor) or isinstance(t, DTensor):
+        return t
+    return _wrapped(t, mesh, [Replicate()] * mesh.ndim,
+                    TensorMeta(t.shape, t.stride(), t.dtype))
+
+
+def _unsharded(place, dims) -> list:
+    """`place` with every Shard of a tensor dim in `dims` and every
+    Partial replaced by Replicate."""
+    return [Replicate() if p.is_partial() or (
+        isinstance(p, Shard) and p.dim in dims) else p for p in place]
+
+
+def _index_rule(args, kwargs, inplace: bool):
+    """``index_copy(_)`` / ``index_add(_)`` (self, dim, index, source):
+    self unsharded along `dim` (an in-place op's self must be so
+    already), the index replicated, the source sharded as self is on its
+    other dims and replicated elsewhere; the result is sharded as self."""
+    x, dim, index, source = args[:4]
+    dim = dim % x.ndim
+    place = _unsharded(x.placements, {dim})
+    if inplace and place != list(x.placements):
+        raise ValueError(f"in-place index op into {x.placements} along "
+                         f"dim {dim}")
+    mesh = x.device_mesh
+    src_place = [p if isinstance(p, Shard) else Replicate() for p in place]
+    return ([place, [Replicate()] * mesh.ndim, src_place], place)
+
+
+def _index_select_rule(args, kwargs, inplace: bool):
+    """``index_select(self, dim, index)``: self unsharded along `dim`; on
+    a mesh dim where the index is sharded and self then replicated, the
+    result is sharded along `dim` as the index is, elsewhere the index is
+    replicated and the result sharded as self."""
+    x, dim, index = args[:3]
+    dim = dim % x.ndim
+    place = _unsharded(x.placements, {dim})
+    index_place, out = [], []
+    for p, q in zip(place, index.placements):
+        shard = isinstance(q, Shard) and p.is_replicate()
+        index_place.append(q if shard else Replicate())
+        out.append(Shard(dim) if shard else p)
+    shape = list(x.shape)
+    shape[dim] = index.shape[0]
+    return ([place, index_place], out, tuple(shape))
+
+
+def _scatter_rule(args, kwargs, inplace: bool):
+    """``scatter`` (self, dim, index, src or value): every operand
+    unsharded along `dim` and sharded as self is on a dim where each
+    operand spans self's length (replicated elsewhere); the result is
+    sharded as self."""
+    x, dim = args[0], args[1] % args[0].ndim
+    dts = [a for a in args if isinstance(a, DTensor)]
+    place = [Replicate() if p.is_partial() or (isinstance(p, Shard) and (
+        p.dim == dim or any(a.shape[p.dim] != x.shape[p.dim] for a in dts)))
+        else p for p in x.placements]
+    if inplace and place != list(x.placements):
+        raise ValueError(f"in-place scatter into {x.placements} along "
+                         f"dim {dim}")
+    return ([place] * len(dts), place)
+
+
+def _pointwise_rule(args, kwargs, inplace: bool):
+    """A pointwise op on operands of one shape: each brought to the first
+    operand's placements, partial sums reduced; the result so placed."""
+    dts = [a for a in args if isinstance(a, DTensor)]
+    place = _unsharded(dts[0].placements, ())
+    if any(tuple(a.shape) != tuple(dts[0].shape) for a in dts):
+        place = [Replicate()] * dts[0].device_mesh.ndim
+    return ([place] * len(dts), place)
+
+
+def _flip_rule(args, kwargs, inplace: bool):
+    """``flip(self, dims)``: self unsharded along the flipped dims; the
+    result placed as self then is."""
+    x, dims = args[0], args[1]
+    place = _unsharded(x.placements, {d % x.ndim for d in dims})
+    return ([place], place)
+
+
+#: the ops routed by `DispatchRoutes` (no DTensor sharding strategy on
+#: some torch version: torch 2.11 has none for the index ops, softplus
+#: and flip, and tries index_select's decomposition before its rule;
+#: 2.13 reaches the index ops and softplus_backward through its
+#: decomposition fallback; the two versions place scatter's operands
+#: differently), each with its placement rule: (args, kwargs, in place) ->
+#: (placements of each DTensor operand, in order; the result's[; the
+#: result's global shape, where it is not the first operand's])
+ROUTED = {
+    "aten.index_copy_": _index_rule,
+    "aten.index_copy": _index_rule,
+    "aten.index_add_": _index_rule,
+    "aten.index_add": _index_rule,
+    "aten.softplus": _pointwise_rule,
+    "aten.softplus_backward": _pointwise_rule,
+    "aten.flip": _flip_rule,
+    "aten.scatter": _scatter_rule,
+    "aten.scatter_": _scatter_rule,
+    "aten.index_select": _index_select_rule,
+}
+
+
+def _route(name, func, args, kwargs, places):
+    """`func` of a `ROUTED` op run on local tensors, its operands (a plain
+    tensor among them taken as replicated) brought to its rule's
+    placements first (each operand moved recorded in `places`)."""
+    inplace = name.endswith("_")
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    args = tuple(_as_dtensor(a, mesh) for a in args)
+    operand_place, out_place, *shape = ROUTED[name](args, kwargs, inplace)
+    first = args[0]
+    shape = shape[0] if shape else tuple(first.shape)
+    want = iter(operand_place)
+    local_args = []
+    for a in args:
+        if isinstance(a, DTensor):
+            b = _moved(a, next(want))
+            if b is not a:
+                places.add(name, a, b)
+            a = b._local_tensor
+        local_args.append(a)
+    out = func(*local_args, **kwargs)
+    if inplace:
+        return first
+    return _wrapped(out, mesh, out_place, TensorMeta(
+        torch.Size(shape), _contiguous_stride(shape), out.dtype))
+
+
+def _contiguous_stride(shape) -> tuple:
+    return torch.empty(tuple(shape), device="meta").stride()
 
 
 def _strided(out) -> bool:
@@ -480,8 +784,8 @@ def _sharded_lookup(x, index, dim: int, embedding: bool):
         index = DTensor.from_local(index, mesh, [Replicate()] * mesh.ndim,
                                    run_check=False)
     keep = index.placements if embedding else x.placements
-    index = index.redistribute(mesh, [Replicate() if a else p
-                                      for a, p in zip(along, keep)])
+    index = _brought(index, [Replicate() if a else p
+                             for a, p in zip(along, keep)])
     lshape, off = compute_local_shape_and_global_offset(
         x.shape, mesh, x.placements)
     local = index.to_local().long()
@@ -547,7 +851,7 @@ def _owner_setitem(dst, index, value) -> bool:
             target = [Shard(whole[p.dim]) if isinstance(p, Shard)
                       and p.dim in whole else Replicate()
                       for p in dst.placements]
-            value = value.redistribute(value.device_mesh, target).to_local()
+            value = _brought(value, target).to_local()
             done = {t.dim for t in target if isinstance(t, Shard)}
         else:
             done = set()
@@ -635,9 +939,13 @@ def _grad(loss, leaves) -> tuple:
     function modes, whose handler runs with its mode switched off, so the
     backward (and the recompute of each checkpointed layer) would run
     without `Redistributor`."""
-    return torch.autograd.Variable._execution_engine.run_backward(
-        (loss,), (torch.ones_like(loss),), False, False, tuple(leaves),
-        False)
+    _BACKWARD[0] += 1
+    try:
+        return torch.autograd.Variable._execution_engine.run_backward(
+            (loss,), (torch.ones_like(loss),), False, False, tuple(leaves),
+            False)
+    finally:
+        _BACKWARD[0] -= 1
 
 
 @dataclasses.dataclass
@@ -690,21 +998,26 @@ def build_step(arch: str, shape_name: str, policy: str, mesh,
         lr = 1e-3
         leaves = list(params.parameters())
 
+        def placed(grads):
+            # each gradient at its parameter's placements: a replicated
+            # weight's partial sum over the batch all-reduced (an FSDP
+            # shard's comes reduce-scattered from its gather's backward)
+            return [_brought(g, p.placements) for p, g in zip(leaves, grads)]
+
         def train_step(batch):
             if microbatch > 1:
-                loss = 0.0
-                grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device) for p in leaves]
+                loss, grads = 0.0, None
                 for b in _microbatches(batch, microbatch):
                     lb = model.loss_fn(params, b, window=win)
-                    g = _grad(lb, leaves)
-                    grads = [a + x.float() for a, x in zip(grads, g)]
+                    g = [x.float() for x in placed(_grad(lb, leaves))]
+                    grads = g if grads is None else [
+                        a + x for a, x in zip(grads, g)]
                     loss = loss + lb.detach()
                 loss = loss / microbatch
                 grads = [g / microbatch for g in grads]
             else:
                 loss = model.loss_fn(params, batch, window=win)
-                grads = _grad(loss, leaves)
+                grads = placed(_grad(loss, leaves))
             new = [(p.detach() - lr * g.float()).to(p.dtype)
                    for p, g in zip(leaves, grads)]
             return loss.detach(), new
@@ -777,15 +1090,16 @@ def _fsdp_params(params) -> dict:
     return out
 
 
-def trace(step: Step) -> tuple[StepCounter, object, list]:
-    """Runs `step` once under `StepCounter`, `ViewFallback` and
+def trace(step: Step) -> tuple[StepCounter, object, list, dict]:
+    """Runs `step` once under `StepCounter`, `DispatchRoutes` and
     `Redistributor`, plain tensors replicated.  Returns (counter, output,
-    redistributions)."""
+    redistributions, {routed op: calls})."""
     places = Places()
+    routes = DispatchRoutes(places)
     with Redistributor(places, step.fsdp), implicit_replication(), \
-            StepCounter() as counter, ViewFallback(places):
+            StepCounter() as counter, routes:
         out = step.fn(*step.args)
-    return counter, out, places.report()
+    return counter, out, places.report(), dict(sorted(routes.routed.items()))
 
 
 def stack_counts(cfg) -> list[int]:
@@ -819,7 +1133,7 @@ def _trace_record(arch, shape_name, policy, mesh, microbatch, pad_vocab,
     t0 = time.perf_counter()
     step = build_step(arch, shape_name, policy, mesh, microbatch, pad_vocab,
                       cfg)
-    counter, out, redist = trace(step)
+    counter, out, redist, routed = trace(step)
     arg = step.argument_bytes
     return {
         "flops_per_device": float(counter.flops),
@@ -832,6 +1146,7 @@ def _trace_record(arch, shape_name, policy, mesh, microbatch, pad_vocab,
         },
         "argument_bytes": arg,
         "redistributions": redist,
+        "routed": routed,
         "compile_seconds": time.perf_counter() - t0,
         **step.notes,
     }
@@ -867,7 +1182,7 @@ def _scale(traces, full: list[int]) -> dict:
     rec = dict(base)
     for key in ("flops_per_device", "bytes_per_device",
                 "collective_bytes_per_device", "memory_analysis",
-                "argument_bytes"):
+                "argument_bytes", "routed"):
         rec[key] = _lin(base[key], [(w, t[key]) for w, t in
                                     zip(weights, traces[1:])])
     # a peak is linear in depth only where it grows with the layers (the
@@ -929,6 +1244,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         print(f"   flops/dev={record['flops_per_device']:.3e} "
               f"bytes/dev={record['bytes_per_device']:.3e}")
         print("   collectives/dev:", record["collective_bytes_per_device"])
+        print("   routed:", record["routed"])
         for r in record["redistributions"]:
             print("   redistributed:", r)
     os.makedirs(out_dir, exist_ok=True)
