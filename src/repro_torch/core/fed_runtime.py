@@ -96,10 +96,17 @@ the parity encode, trace generation, each block of the step
 (``scan/compile`` for the first, ``scan/execute`` after: the port has no
 compiled scan, see `repro_torch.obs.spans`), checkpoint saves and
 restores are timed; a block's span syncs the device once before its
-clock stops.  The host delay arrays a block already drew are kept for
-`Experiment.attribution`, and ``run(journal_dir=...)`` journals each
-block's rounds after its checkpoint.  None of it draws or reads a value
-back, so a run is the same bits with telemetry on or off.
+clock stops.  Inside a block, spans that never sync time the host's work
+and place it on a profiler's trace: ``block/run`` (the whole
+`Experiment.run_block`), ``block/draw`` (the host delay draw),
+``block/upload`` (each host-to-device copy), ``round/step`` (each round's
+enqueue) and ``block/readback`` (each device-to-host read), with
+``run/init`` and ``run/finish`` around a run; a span a copy or read, so
+their counts are the block's transfers.  The host delay arrays a block
+already drew are kept for `Experiment.attribution`, and
+``run(journal_dir=...)`` journals each block's rounds after its
+checkpoint.  None of it draws or reads a value back, so a run is the same
+bits with telemetry on or off.
 """
 from __future__ import annotations
 
@@ -457,11 +464,18 @@ def run_rounds(step, consts, carry, xs, eval_at=None):
     skipped), still on the device."""
     outs = []
     for k in range(len(xs[0])):
-        carry, out = step(consts, carry, tuple(col[k] for col in xs))
+        with obs_spans.span("round/step"):
+            carry, out = step(consts, carry, tuple(col[k] for col in xs))
         outs.append(out)
         if eval_at is not None:
             eval_at(k, carry[0])
     return carry, [torch.stack(col) for col in zip(*outs)]
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """One device-to-host read of a block's results."""
+    with obs_spans.span("block/readback"):
+        return t.cpu().numpy()
 
 
 def _empty_sched(n: int) -> dict:
@@ -894,8 +908,10 @@ class Experiment:
     def _carry0(self, theta, lr_scale, theta_prev=None) -> tuple:
         """The step's carry: (theta, lr_scale), and theta_prev (theta where
         none is given) under stale replay."""
-        carry = (theta, torch.tensor(float(lr_scale), dtype=torch.float32,
-                                     device=self.device))
+        with obs_spans.span("block/upload"):
+            scale = torch.tensor(float(lr_scale), dtype=torch.float32,
+                                 device=self.device)
+        carry = (theta, scale)
         if self.stale_faults:
             carry = carry + (theta if theta_prev is None else theta_prev,)
         return carry
@@ -922,11 +938,14 @@ class Experiment:
             return (), state.fault_rng_state
         frng = np.random.default_rng()
         frng.bit_generator.state = state.fault_rng_state
-        fcodes, fpar = finject.sample_fault_rows(self.faults, frng, rounds,
-                                                 self.n)
-        return ((torch.from_numpy(fcodes).to(self.device),
-                 self._device(fpar)), frng.bit_generator.state)
+        with obs_spans.span("block/draw"):
+            fcodes, fpar = finject.sample_fault_rows(self.faults, frng,
+                                                     rounds, self.n)
+        with obs_spans.span("block/upload"):
+            fcodes = torch.from_numpy(fcodes).to(self.device)
+        return (fcodes, self._device(fpar)), frng.bit_generator.state
 
+    @obs_spans.spanned("run/init")
     def init_state(self, iterations: int, *,
                    n_realizations: Optional[int] = None,
                    collect: bool = False) -> RunState:
@@ -996,6 +1015,7 @@ class Experiment:
             skipped=np.zeros(acc, np.int64), theta_prev=theta_prev,
             fault_rng_state=fault_rng_state)
 
+    @obs_spans.spanned("block/run")
     def run_block(self, state: RunState, n_rounds: Optional[int] = None, *,
                   eval_fn: Optional[Callable] = None,
                   eval_every: int = 10) -> RunState:
@@ -1053,12 +1073,16 @@ class Experiment:
     def _device(self, arr) -> torch.Tensor:
         """A NumPy block input as a float32 tensor on the device: one copy
         a block, never one a round."""
-        return torch.from_numpy(np.asarray(arr, np.float32)).to(self.device)
+        with obs_spans.span("block/upload"):
+            return torch.from_numpy(np.asarray(arr, np.float32)).to(
+                self.device)
 
     def _draw_delays(self, rng, rounds: int) -> np.ndarray:
         """(rounds, n) float64 delays on the host, one vectorized draw."""
-        return sample_round_times(self.nodes, np.asarray(self.loads, float),
-                                  rng, rounds)
+        with obs_spans.span("block/draw"):
+            return sample_round_times(self.nodes,
+                                      np.asarray(self.loads, float), rng,
+                                      rounds)
 
     def _delays(self, rng, rounds: int) -> torch.Tensor:
         """(rounds, n) float32 delays on the device, one vectorized draw."""
@@ -1078,12 +1102,14 @@ class Experiment:
         """
         consts = self._get_consts()
         if not self.adaptive:
-            times = sample_round_times_traced(
-                self.nodes, np.asarray(self.loads, float), rng, trace)
+            with obs_spans.span("block/draw"):
+                times = sample_round_times_traced(
+                    self.nodes, np.asarray(self.loads, float), rng, trace)
             return ((self._device(times), lrs, self._device(trace.active)),
                     consts, None, times)
-        seg = plan_segment(self, est, trace, r0, r0 + trace.rounds,
-                           controls, rng)
+        with obs_spans.span("block/draw"):
+            seg = plan_segment(self, est, trace, r0, r0 + trace.rounds,
+                               controls, rng)
         xs = (self._device(seg.times), lrs, self._device(seg.active))
         if self.step_kind == "adaptive_coded":
             consts = dict(consts, gmask_blocks=seg.gmask_blocks)
@@ -1137,7 +1163,7 @@ class Experiment:
             carry, cols = self._rounds(state.theta, state.lr_scale,
                                        xs + fault_xs, eval_at, consts,
                                        state.theta_prev)
-        t_rounds, n_ret, n_masked, skipped = (c.cpu().numpy() for c in cols)
+        t_rounds, n_ret, n_masked, skipped = (_to_host(c) for c in cols)
         if state.collect:
             losses = np.concatenate([state.losses, loss_b])
             accs = np.concatenate([state.accs, acc_b])
@@ -1148,7 +1174,7 @@ class Experiment:
             t_rounds=np.concatenate(
                 [state.t_rounds, t_rounds.astype(np.float64)]),
             n_ret=np.concatenate([state.n_ret, n_ret]),
-            losses=losses, accs=accs, lr_scale=float(carry[1]),
+            losses=losses, accs=accs, lr_scale=float(_to_host(carry[1])),
             n_masked=np.concatenate(
                 [state.n_masked, n_masked.astype(np.int64)]),
             skipped=np.concatenate(
@@ -1181,14 +1207,14 @@ class Experiment:
                     prevs.append(carry[2])
                 cols.append(cols_r)
         t_rounds, n_ret, n_masked, skipped = (
-            torch.stack(col).cpu().numpy() for col in zip(*cols))
+            _to_host(torch.stack(col)) for col in zip(*cols))
         return dataclasses.replace(
             state, rounds_done=state.rounds_done + K,
             theta=torch.stack(thetas), rng_state=rng.bit_generator.state,
             t_rounds=np.concatenate(
                 [state.t_rounds, t_rounds.astype(np.float64)], axis=1),
             n_ret=np.concatenate([state.n_ret, n_ret], axis=1),
-            lr_scale=torch.stack(scales).cpu().numpy().astype(np.float64),
+            lr_scale=_to_host(torch.stack(scales)).astype(np.float64),
             n_masked=np.concatenate(
                 [state.n_masked, n_masked.astype(np.int64)], axis=1),
             skipped=np.concatenate(
@@ -1223,11 +1249,11 @@ class Experiment:
                 torch.zeros((self.q, self.c), dtype=torch.float32,
                             device=self.device), 1.0, xs + fault_xs,
                 consts=consts)
-        t_rounds, n_ret, n_masked, skipped = (c.cpu().numpy() for c in cols)
+        t_rounds, n_ret, n_masked, skipped = (_to_host(c) for c in cols)
         theta = state.theta.clone()
         theta[r] = carry[0]
         lr_scale = np.asarray(state.lr_scale, np.float64).copy()
-        lr_scale[r] = float(carry[1])
+        lr_scale[r] = float(_to_host(carry[1]))
         return dataclasses.replace(
             state, realizations_done=r + 1, rounds_done=(r + 1) * T,
             theta=theta, rng_state=rng.bit_generator.state, sched=sched_new,
@@ -1292,6 +1318,7 @@ class Experiment:
         return state
 
     # ------------------------------------------------------------ finalizing
+    @obs_spans.spanned("run/finish")
     def finish(self, state: RunState,
                eval_fn: Optional[Callable] = None):
         """Turn a completed `RunState` into a `FedResult` (single) or a

@@ -3,10 +3,19 @@
 The port of ``repro.obs.spans``.  The runtime's hot paths are annotated
 with ``with span("solver/two_step")`` blocks; when the module flag is off
 (the default) ``__enter__`` is a single flag check: no clock read, no
-device sync, no lock.  `enable()` turns every span in the process into a
-wall-clock measurement recorded in one in-process collector keyed by span
-name; `totals()` snapshots it.  This collector is the port's own: it is
-independent of the reference's ``repro.obs.spans`` flag and records.
+device sync, no lock, no profiler range.  `enable()` turns every span in
+the process into a wall-clock measurement recorded in one in-process
+collector keyed by span name; `totals()` snapshots it.  This collector is
+the port's own: it is independent of the reference's ``repro.obs.spans``
+flag and records.
+
+Inside a ``torch.profiler`` session a measuring span also opens
+``torch.profiler.record_function(name)`` for its duration, so each span is
+a ``user_annotation`` event on the clock of the device records, nested in
+its parent by time: an idle stretch of the card can be charged to the span
+under way at that moment.  Outside a session a measuring span opens no
+range (one check of the profiler's state), since a range there records
+nothing and costs more than the span's own clock.
 
 A span given ``sync=device`` calls ``torch.cuda.synchronize(device)``
 before its clock stops when it measures and the device is a GPU, so the
@@ -29,6 +38,19 @@ Span names in the runtime:
   ``checkpoint/save``         `save_state` (atomic npz write)
   ``checkpoint/restore``      `restore_state` (load + digest verify)
   ``journal/append``          run-journal block append
+  ``run/init``                `Experiment.init_state`
+  ``run/finish``              `Experiment.finish`
+  ``block/run``               one whole `Experiment.run_block`
+  ``block/draw``              a block's host delay draw (and its fault
+                              rows' draw where faults are on)
+  ``block/upload``            one host-to-device copy of a block input
+                              (the delays, the learning rates, the carry's
+                              lr scale a realization): its count is the
+                              block's uploads
+  ``round/step``              the host's enqueue of one round of one
+                              realization (inside ``scan/*``)
+  ``block/readback``          one device-to-host read of a block's
+                              results: its count is the block's readbacks
   ``service/block``           one `ExperimentService` block advance
   ``service/ckpt_save``       the service's view of one checkpoint save
   ``service/backoff``         retry backoff sleeps
@@ -38,7 +60,9 @@ The port has no compiled scan: its block is a Python loop of eager rounds,
 so ``scan/compile`` holds the first block's one-time costs (lazily loaded
 CUDA modules, the kernels' first launches) and ``scan/execute`` the warm
 blocks.  The names are the reference's, so the same `REQUIRED_SPANS` and
-report read both packages.
+report read both packages.  The ``run/``, ``block/`` and ``round/`` spans
+are the port's own and never sync: they time host work, and their ranges
+place it on the device trace.
 
 Timing never touches a random stream or a value that flows into a
 trajectory: runs with spans enabled are bit-identical to runs with spans
@@ -47,14 +71,15 @@ disabled (``tests/test_torch_obs.py``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import threading
 import time
 
 import torch
 
-__all__ = ["span", "enable", "disable", "enabled", "reset", "record",
-           "totals", "write_json", "collecting", "SPANS_NAME"]
+__all__ = ["span", "spanned", "enable", "disable", "enabled", "reset",
+           "record", "totals", "write_json", "collecting", "SPANS_NAME"]
 
 #: filename `write_json` conventionally uses inside a run directory
 SPANS_NAME = "spans.json"
@@ -124,14 +149,16 @@ class span:
     """``with span("solver/two_step"): ...`` — wall-clock one region.
 
     When the module flag is off the context manager is inert (no clock
-    read, no sync).  ``force=True`` measures regardless of the flag — the
-    duration lands in ``self.elapsed_s`` for the caller, but is only
-    folded into the global collector when the flag is on (the
+    read, no sync, no profiler range).  ``force=True`` measures regardless
+    of the flag — the duration lands in ``self.elapsed_s`` for the caller,
+    but is only folded into the global collector when the flag is on (the
     `ExperimentService` uses this for its always-on per-run health
-    timings).  ``sync`` (a device) makes a measuring span wait for that
-    GPU's queued work before its clock stops.
+    timings).  With the flag on, inside a profiler session, the span opens
+    a ``record_function`` range.  ``sync`` (a device) makes a measuring
+    span wait for that GPU's queued work before its clock stops; the range
+    closes after the wait.
     """
-    __slots__ = ("name", "elapsed_s", "_t0", "_force", "_sync")
+    __slots__ = ("name", "elapsed_s", "_t0", "_force", "_sync", "_range")
 
     def __init__(self, name: str, *, force: bool = False, sync=None):
         self.name = name
@@ -139,9 +166,15 @@ class span:
         self._t0 = None
         self._force = force
         self._sync = sync
+        self._range = None
 
     def __enter__(self) -> "span":
-        if _enabled or self._force:
+        if _enabled:
+            if torch.autograd._profiler_enabled():
+                self._range = torch.profiler.record_function(self.name)
+                self._range.__enter__()
+            self._t0 = time.perf_counter()
+        elif self._force:
             self._t0 = time.perf_counter()
         return self
 
@@ -154,7 +187,21 @@ class span:
             self._t0 = None
             if _enabled:
                 record(self.name, self.elapsed_s)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         return False
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 @contextlib.contextmanager

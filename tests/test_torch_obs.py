@@ -152,24 +152,85 @@ def test_span_records_nothing_when_disabled():
 
 def test_disabled_span_reads_no_clock_and_syncs_nothing():
     """A disabled span is one flag check: no `time.perf_counter`, no
-    `torch.cuda.synchronize`, even when it is told to sync a GPU."""
+    `torch.cuda.synchronize`, even when it is told to sync a GPU, and no
+    profiler range, even when forced to measure inside a profiler session.
+    A measuring span opens a range only inside a session."""
     cuda = torch.device("cuda", 0)
+    cpu_only = [torch.profiler.ProfilerActivity.CPU]
     with mock.patch.object(t_spans.time, "perf_counter",
                            wraps=time.perf_counter) as clock, \
-            mock.patch.object(t_spans.torch.cuda, "synchronize") as sync:
-        with t_spans.span("scan/execute", sync=cuda):
-            pass
-        assert clock.call_count == 0 and sync.call_count == 0
+            mock.patch.object(t_spans.torch.cuda, "synchronize") as sync, \
+            mock.patch.object(t_spans.torch.profiler, "record_function",
+                              wraps=torch.profiler.record_function) as rng:
+        with torch.profiler.profile(activities=cpu_only):
+            with t_spans.span("scan/execute", sync=cuda):
+                pass
+            assert clock.call_count == 0 and sync.call_count == 0
+            with t_spans.span("service/block", force=True):
+                pass
+            assert clock.call_count == 2 and rng.call_count == 0
         t_spans.enable()
         with t_spans.span("scan/execute", sync=cuda):
             pass
-        assert clock.call_count == 2
+        assert clock.call_count == 4 and rng.call_count == 0
         sync.assert_called_once_with(cuda)
         # a CPU device has nothing to wait for
-        with t_spans.span("scan/execute", sync=torch.device("cpu")):
-            pass
+        with torch.profiler.profile(activities=cpu_only):
+            with t_spans.span("scan/execute", sync=torch.device("cpu")):
+                pass
         assert sync.call_count == 1
+        rng.assert_called_once_with("scan/execute")
     assert t_spans.totals()["scan/execute"]["count"] == 2
+
+
+def _annotations(prof, path) -> dict:
+    """{name: (start, end)} of the profile's host user annotations of the
+    round loop, read back from its Chrome trace as a harness reads it."""
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation"
+            and e["name"].startswith(("block/", "round/"))}
+
+
+def test_measuring_span_is_a_profiler_annotation_nested_in_its_parent(
+        tmp_path):
+    t_spans.enable()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with t_spans.span("block/run"):
+            with t_spans.span("round/step"):
+                torch.ones(4).sum()
+    t_spans.disable()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as off:
+        with t_spans.span("block/run"):
+            pass
+    assert _annotations(off, tmp_path / "off.json") == {}
+    got = _annotations(prof, tmp_path / "on.json")
+    assert set(got) == {"block/run", "round/step"}
+    (a, b), (c, d) = got["block/run"], got["round/step"]
+    assert a <= c <= d <= b
+    assert {k: v["count"] for k, v in t_spans.totals().items()} == {
+        "block/run": 1, "round/step": 1}
+
+
+@pytest.mark.parametrize("R", [None, 2])
+def test_block_counts_its_transfers(R):
+    """One coded block of K = 3 rounds: one ``block/run``, R * K
+    ``round/step``, 5 ``block/readback`` (four columns and the lr scale)
+    and 2 + R ``block/upload`` (the delays, the learning rates, one lr
+    scale a realization).  Each is a synchronizing copy on a card, so a
+    transfer added through `_device` or `_to_host` fails here."""
+    exp = _port_exp()
+    state = exp.init_state(ROUNDS, n_realizations=R)
+    with t_spans.collecting() as mod:
+        exp.run_block(state, 3)
+        counts = {k: v["count"] for k, v in mod.totals().items()}
+    r = 1 if R is None else R
+    assert counts == {"block/run": 1, "block/draw": 1, "scan/compile": 1,
+                      "round/step": r * 3, "block/readback": 5,
+                      "block/upload": 2 + r}
 
 
 def test_forced_span_measures_without_recording_globally():
