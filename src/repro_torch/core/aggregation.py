@@ -84,7 +84,8 @@ def fused_client_parity_tensors(sub_x, sub_y, mask, parity_x, parity_y, *,
 
 
 def fused_embed_client_gradients(x_raw, y_stack, omega, delta, theta, *,
-                                 mask, parity_phi=None, live_rows=None):
+                                 mask, parity_phi=None, live_rows=None,
+                                 prepared=None):
     """All-client gradients straight from RAW features in one launch.
 
     x_raw: (n, l, d), y_stack: (rows, l, c), mask: (rows, l) -> (rows, q,
@@ -93,11 +94,13 @@ def fused_embed_client_gradients(x_raw, y_stack, omega, delta, theta, *,
     `parity_phi` (l, q) the parity pseudo-client (already in q-space) is row
     n; its mask entries carry the coded 1/(u (1-pnr_C)) scale.
     `live_rows` = (l_max, u) of `fused_embed_client_parity_tensors`: the
-    zero padding past them is not embedded.
+    zero padding past them is not embedded.  `prepared` =
+    ``ops.prepare_rff_operands(x_raw, omega)``, made once per deployment.
     """
     return ops.rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack,
                                       mask, parity_phi=parity_phi,
-                                      live_rows=live_rows)
+                                      live_rows=live_rows,
+                                      prepared=prepared)
 
 
 def fused_embed_client_parity_tensors(sub_x_raw, sub_y, mask, parity_x,

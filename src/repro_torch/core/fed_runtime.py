@@ -406,7 +406,8 @@ def build_step(static: dict):
                     consts["gx"], consts["gy"], consts["omega"],
                     consts["delta"], th, mask=gmask,
                     parity_phi=consts.get("pphi"),
-                    live_rows=consts.get("live_rows"))
+                    live_rows=consts.get("live_rows"),
+                    prepared=consts.get("fused_operands"))
             else:
                 g = aggregation.batched_client_gradients(
                     consts["gx"], consts["gy"], th, mask=gmask,
@@ -782,6 +783,11 @@ class Experiment:
         if self.fused_embed:
             consts["omega"] = self.omega
             consts["delta"] = self.delta
+            # the fused kernel's copies of X and Omega, made once per
+            # deployment
+            if self.omega.is_cuda:
+                consts["fused_operands"] = ops.prepare_rff_operands(
+                    gx, self.omega)
         consts.update(self.scheme_obj.extra_consts(self))
         if self.mesh is not None and "live_rows" in consts:
             consts["live_rows"] = _shard_live_rows(

@@ -25,10 +25,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# x, omega, delta, theta, y, mask, pphi, part, g; rows, n_real, L, d, q,
-# c, q_true, live_raw, live_par, slab_rows, cluster, cols_per_cta,
-# groups_raw, groups_par; stream
-_FUSED_ARGS = (_P,) * 9 + (_I,) * 14 + (_P,)
+# x_big, x_small, omega_big, omega_small, delta, theta, y, mask, pphi, part,
+# g; rows, n_real, L, d, q, c, q_true, live_raw, live_par, slab_rows,
+# cluster, cols_per_cta, groups_raw, groups_par, stages; stream
+_FUSED_ARGS = (_P,) * 11 + (_I,) * 15 + (_P,)
 _GQA_ARGS = (_P,) * 8 + (_I,) * 9 + (_P,)
 # C signature of each entry point: symbol -> (library, argtypes)
 SIGNATURES = {
@@ -43,8 +43,8 @@ SIGNATURES = {
     "linreg_grad_f32": ("linreg_grad", (_P,) * 6 + (_I,) * 4 + (_P,)),
     "rff_linreg_grad_masked_f32": ("rff_linreg_grad", _FUSED_ARGS),
     "rff_linreg_grad_masked_bf16": ("rff_linreg_grad", _FUSED_ARGS),
-    # bf16, slab_rows, cluster, cols_per_cta -> clusters at once
-    "rff_linreg_grad_max_clusters": ("rff_linreg_grad", (_I,) * 4),
+    # bf16, slab_rows, cluster, cols_per_cta, stages -> clusters at once
+    "rff_linreg_grad_max_clusters": ("rff_linreg_grad", (_I,) * 5),
     # q, k, v, k_pos, out, part_m, part_l, part_acc, B, T, H, K, hd, hd_v,
     # q_pos, window, split_tiles, stream
     "gqa_decode_f32": ("gqa_decode", _GQA_ARGS),

@@ -1,7 +1,8 @@
-// Building blocks shared by the tensor-core kernels (rff_linreg_grad.cu,
-// parity_encode.cu) and the staged kernels (linreg_grad.cu) on Hopper:
-// cp.async copies into shared memory, ldmatrix, and float32 products on the
-// tensor cores as 3xTF32.
+// Building blocks shared by the mma.sync tensor-core tile (tc_gemm_f32.cuh,
+// under rff_embed.cu and parity_encode.cu), gqa_decode.cu and the staged
+// kernels (linreg_grad.cu) on Hopper: cp.async copies into shared memory,
+// ldmatrix, and float32 products on the tensor cores as 3xTF32
+// (rff_linreg_grad.cu takes only shared-memory addresses from here).
 //
 // 3xTF32: each float32 operand v is split into big + small, big the TF32
 // value nearest v and small the TF32 value nearest the remainder, and a

@@ -5,17 +5,20 @@
 //   phi_b = pphi                                       b >= n_real (parity)
 //   g_b   = phi_b^T diag(mask_b) (phi_b theta - Y_b)
 //
-//   X: (n_real, L, d), Omega: (d, q), delta: (q,), theta: (q, c),
-//   Y: (rows, L, c), mask: (rows, L) float32, pphi: (L, q) or nullptr
-//   -> g: (rows, q, c) float32.
+//   X: (n_real, L, d), Omega^T: (q, d), both prepared once
+//   (ops.prepare_rff_operands: float32 as their big and small TF32 parts,
+//   bfloat16 as they are), delta: (q,), theta: (q, c), Y: (rows, L, c),
+//   mask: (rows, L) float32, pphi: (L, q) or nullptr -> g: (rows, q, c)
+//   float32.
 //
 // X, Omega, delta, theta, Y and pphi are all float or all __nv_bfloat16
-// (two entry points); the mask (the parity row's 1/u scale would lose bits
-// in bf16), phi, every sum and g are float32.  Only the first `live_raw`
-// rows of each raw client and the first `live_par` rows of the parity row
-// are read: the caller guarantees that the rows past them hold x = 0,
-// y = 0 and mask = 0 (see ops.rff_linreg_grad_masked for why skipping
-// them is exact).
+// (two entry points, one kernel template); the mask (the parity row's 1/u
+// scale would lose bits in bf16), phi, every sum and g are float32.  Only
+// the first `live_raw` rows of each raw client and the first `live_par`
+// rows of the parity row are read: the caller guarantees that the rows past
+// them hold x = 0, y = 0 and mask = 0 (see ops.rff_linreg_grad_masked for
+// why skipping them is exact).  d is a multiple of 16 bytes of elements
+// (the wrapper pads X and Omega^T with zero columns, which add 0 to X Omega).
 //
 // Replaces the Pallas TPU kernel `rff_linreg_grad_masked` in
 // src/repro/kernels/rff_linreg_grad.py.  There Omega (d, q) and theta stay
@@ -26,26 +29,37 @@
 // phi is spread over a thread-block cluster instead:
 //
 //   One cluster of CL <= 8 CTAs per (row b, group s of slabs).  A slab is
-//   R (64, or 32 / 16 where q is large) consecutive live rows of row b; the
-//   group walks slabs s, s + S, s + 2S, ..., with S groups for each raw row
-//   and its own S for the parity row (whose slabs need no embedding, and
-//   whose u live rows outnumber a client's l_max).  CTA k of the cluster
-//   owns the QC columns [k QC, (k + 1) QC) of q and keeps its (R, QC) part
-//   of phi in shared memory, float32.  Per slab:
-//     1. embed: 64 x 256 tiles of X Omega over d on the tensor cores
-//        (mma.sync), X and Omega staged in shared memory in a ring of 3
-//        buffers (cp.async, 16-byte copies where the widths allow).
-//        bfloat16: m16n8k16, fragments from ldmatrix; bf16 products are
-//        exact in float32 and the sums float32, as the TPU's MXU computes.
-//        float32: 3xTF32, each element split into a big and a small TF32
-//        part and three m16n8k8 products (small*big, big*small, big*big),
-//        about 2^-22 relative a product against float32's 2^-24; never
-//        single-pass TF32.  The tensor cores' float32 sums round toward
-//        zero, so every 16 K steps their partial sums are added into phi in
-//        shared memory with an ordinary float32 add (at the main path's
-//        shape on an H100, chip_smoke.py's check of g: 4.7e-4 with one
-//        accumulator over d = 784, 6.1e-5 with the adds).  The cosine
-//        epilogue writes phi straight into shared memory.  The parity row
+//   R (112, or 64 / 32 / 16 where q is wide) consecutive live rows of row b;
+//   the group walks slabs s, s + S, s + 2S, ..., with S groups for each raw
+//   row and its own S for the parity row (whose slabs need no embedding).
+//   CTA k of the cluster owns the QC columns [k QC, (k + 1) QC) of q and
+//   keeps its (R, QC) part of phi in shared memory, float32.  A CTA is three
+//   warpgroups: in step 1 warpgroups 0 and 1 compute and one thread of
+//   warpgroup 2 copies; all three share steps 2a-2b.  Per slab:
+//     1. embed, per 128-column tile of the CTA's columns: the copying
+//        thread walks d in stages of 64 bytes (16 float32 or 32 bf16 of K)
+//        through a ring of `stages` shared-memory stages, filled by TMA:
+//        the slab's X rows in 16-row slices, each slice loaded by one CTA
+//        of the cluster and multicast to all of them (X is read once per
+//        cluster), and this CTA's (128, K) tile of Omega^T, big and small
+//        parts of both in float32, 64-byte swizzled as wgmma reads them.  A
+//        stage completes on its `full` mbarrier (transaction bytes) and
+//        goes back on its `empty` mbarrier, which counts both compute
+//        warpgroups of every CTA of the cluster (a multicast slice lands in
+//        all of them).  Warpgroup w takes rows 64 w .. 64 w + 63 of the
+//        slab (warpgroup 1 idles where the slab has no such row) and issues
+//        wgmma.mma_async m64n128 with both operands in shared memory, two K
+//        steps a stage: bfloat16 one m64n128k16 a step; float32 3xTF32,
+//        three m64n128k8 products a step, small*big, big*small, big*big
+//        (both parts split as cvt.rna splits them, at set-up), about 2^-22
+//        relative a product against float32's 2^-24; never single-pass
+//        TF32.  The two warpgroups issue in turns, so that one's products
+//        run while the other hands back its stage and waits for the next.
+//        The tensor cores' float32 sums round toward zero, so every 128 of
+//        K their partial sums are added into a register sum with an
+//        ordinary float32 add, which lands in phi at the tile's end.  A
+//        cosine pass over each 256-column piece then turns the sums into
+//        phi (cos_rr: straight-line, within cosf's error).  The parity row
 //        copies pphi instead.
 //     2. residual: each CTA contracts its columns of phi with theta into a
 //        partial (R, 16) residual (4 x 4 register blocks, float4 reads of
@@ -56,25 +70,33 @@
 //     3. gradient: each CTA accumulates phi^T R for its columns from the
 //        phi it already holds.
 //   Steps 2-3 repeat per 16-wide chunk of c over the same phi, so each phi
-//   element is computed once per launch and never leaves the SM.  The sum
-//   over the slabs of a group runs in slab order (each output element has
-//   one owner thread, which reads and adds it back); where a row has more
-//   than one group, a short combine launch sums its groups' partial
-//   gradients in group order.  No
-//   atomics anywhere: reruns give the same bits.  Rows with mask 0 inside
-//   the live range are computed, so a NaN there propagates (0 * NaN), as in
-//   the reference.
+//   element is computed once per launch and never leaves the SM.  Step 2's
+//   theta piece, quarter sums and partial residual reuse the stage ring;
+//   the copying thread starts the next slab's copies only after the last
+//   cluster barrier of the slab, when every CTA of the cluster is past
+//   them.  The sum over the slabs of a group runs in slab order (each
+//   output element has one owner thread, which reads and adds it back);
+//   where a row has more than one group, a short combine launch sums its
+//   groups' partial gradients in group order.  No atomics anywhere: reruns
+//   give the same bits.  Rows with mask 0 inside the live range are
+//   computed, so a NaN there propagates (0 * NaN), as in the reference.
 //
 // Bound on the H100: operations.  At the main-path shape (31 rows, 30 of
 // them raw, d = 784, q = 2000, c = 10) with l_max = 400 live client rows
 // and u = 2400 parity rows the embedding is 2*30*400*784*2000 = 37.6 GFLOP
 // and the two contractions (FFMA) 4*(30*400 + 2400)*2000*10 = 1.2 GFLOP:
 // 0.25 ms for 3xTF32 at 495/3 TFLOP/s, 0.06 ms in bf16 at 989 TFLOP/s.
-// With every row of L = 2400 live the embedding is 226 GFLOP.
+// With every row of L = 2400 live the embedding is 226 GFLOP.  L2 traffic:
+// each CTA reads its 256 columns of Omega^T (0.8 MB, twice that as big and
+// small parts) once per 112-row slab, 1.5 GB a call at the main shape.
+// What bounds the main shape is the ring: 3 stages of 32 KB are what fits
+// beside phi, and the stages' copies and hand-backs leave the tensor cores
+// busy about three quarters of the embedding on an H100.
 #include <cmath>
 #include <cstdint>
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -87,53 +109,62 @@ namespace {
 using namespace sm90;
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;
-constexpr int TILE_M = 64;        // rows of an embedding tile (R <= 64)
-constexpr int TILE_N = 256;       // columns of an embedding tile
+constexpr int THREADS = 384;      // warpgroups 0, 1 compute; 2 copies
+constexpr int CONSUMERS = 256;    // the compute warpgroups' threads
+constexpr int PIECE = 256;        // a CTA's columns come in 256-column pieces
+constexpr int TILE_N = 128;       // columns of an embedding tile (wgmma N)
+constexpr int WG_ROWS = 64;       // rows of a warpgroup's tile (wgmma M)
+constexpr int MAX_SLAB = 128;     // rows of the stage's X tiles
 constexpr int CMAX = 16;          // label columns per pass
 constexpr int MAX_CLUSTER = 8;
 constexpr int PHI_PAD = 4;        // keeps phi rows 16-byte aligned
 constexpr int MAX_SMEM = 232448;  // a block's dynamic shared memory
 
-// float32 (3xTF32) tile: Xs[row][k] and Bs[k][col], K steps of 8; bf16
-// tile: the same with K steps of 16.  Both in a ring of 3 stages; the pads
-// put the 8 rows an ldmatrix reads in 8 distinct 16-byte bank groups
-// (48-byte rows of X; 528-byte bf16 rows of Omega) and the float32 B reads
-// of a warp in 32 distinct banks (264-float rows)
-constexpr int STAGES = 3;
-constexpr int F_BK = 8;
-constexpr int F_LDA = F_BK + 4;
-constexpr int F_LDB = TILE_N + 8;
-constexpr int F_FLUSH = 16;       // K steps between adds into phi
-constexpr int H_BK = 16;
-constexpr int H_LDA = H_BK + 8;
-constexpr int H_LDB = TILE_N + 8;
-
-// the staging area: the GEMM's buffers, then a 256-row piece of theta and
-// the residual's four quarter sums
-constexpr int STAGE_BYTES = 34560;
-static_assert(STAGES * (TILE_M * F_LDA + F_BK * F_LDB) * 4 <= STAGE_BYTES,
-              "f32");
-static_assert(STAGES * (TILE_M * H_LDA + H_BK * H_LDB) * 2 <= STAGE_BYTES,
-              "bf16");
-static_assert((CMAX * TILE_N + 4 * TILE_M * CMAX) * 4 <= STAGE_BYTES,
-              "theta piece and the residual's quarter sums");
-static_assert(TILE_N == THREADS && CMAX == 16 && TILE_M == 64,
+// A stage holds 64 bytes of K: the big and small parts of up to 128 rows of
+// X in 16-row slices (one TMA box each) and of the (128, K) tile of
+// Omega^T, all 64-byte swizzled; every tile starts on a 1024-byte boundary
+constexpr int K_BYTES = 64;
+constexpr int SLICE_ROWS = 16;
+constexpr int X_BYTES = MAX_SLAB * K_BYTES;
+constexpr int B_BYTES = TILE_N * K_BYTES;
+constexpr int STAGE_BYTES = 32768;
+constexpr int MAX_STAGES = 3;
+constexpr int FLUSH_K = 128;      // K between float32 adds of the products
+static_assert(STAGE_BYTES == 2 * X_BYTES + 2 * B_BYTES, "stage layout");
+static_assert(X_BYTES % 1024 == 0 && B_BYTES % 1024 == 0, "tile alignment");
+static_assert(PIECE == CONSUMERS && PIECE % TILE_N == 0 && CMAX == 16 &&
+                  MAX_SLAB == 2 * WG_ROWS,
               "one theta row a thread; 4 x 4 register blocks");
 
 template <class T>
 struct Args {
-  const T* x;
-  const T* omega;
+  CUtensorMap xb;  // X (big parts in float32): boxes of 16 rows x 64 bytes
+  CUtensorMap xs;  // X small parts (float32 only)
+  CUtensorMap tb;  // Omega^T (big parts in float32): 128 rows x 64 bytes
+  CUtensorMap ts;  // Omega^T small parts (float32 only)
   const T* delta;
   const T* theta;
   const T* y;
   const float* mask;
   const T* pphi;
   float* out;      // g, or the partials of every (row, group) cluster
-  int n_real, L, d, q, c, live_raw, live_par, R, QC, S_raw, S_par;
+  int n_real, L, d, q, c, live_raw, live_par, R, QC, S_raw, S_par, stages;
   float scale;
-  bool vec;        // 16-byte copies of X and Omega are aligned
+};
+
+template <class T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int K = 16;            // K a stage, two products' K
+  static constexpr bool split = true;     // 3xTF32
+  static constexpr CUtensorMapDataType tma = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+};
+template <>
+struct Elem<bf16> {
+  static constexpr int K = 32;
+  static constexpr bool split = false;
+  static constexpr CUtensorMapDataType tma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -141,328 +172,381 @@ __device__ __forceinline__ float to_float(bf16 v) {
   return __bfloat162float(v);
 }
 
-__device__ __forceinline__ float phi_of(float acc, float delta, float scale) {
-  return scale * cosf(acc + delta);
+// cos(x) within 1.5 ulp of float64's (cosf: 2 ulp), in straight-line code
+// so that a thread's cosines interleave: q = x 2/pi rounded, r = x - q pi/2
+// in three FMA steps (Cody-Waite), then the minimax polynomials of cos and
+// sin on [-pi/4, pi/4] (Cephes' cosf and sinf) by the quadrant q mod 4;
+// cosf past |x| = 8192 (the caller's branch, outside the straight line)
+__device__ __forceinline__ float cos_rr(float x) {
+  const float q = rintf(x * 0.636619772367581343f);
+  float r = fmaf(q, -1.57079601e+00f, x);
+  r = fmaf(q, -3.13916473e-07f, r);
+  r = fmaf(q, -5.39030253e-15f, r);
+  const float z = r * r;
+  const float c =
+      fmaf(fmaf(fmaf(fmaf(2.443315711809948e-5f, z, -1.388731625493765e-3f),
+                     z, 4.166664568298827e-2f),
+                z, -0.5f),
+           z, 1.0f);
+  const float sn = fmaf(
+      fmaf(fmaf(-1.9515295891e-4f, z, 8.3321608736e-3f), z, -1.6666654611e-1f),
+      z * r, r);
+  const int k = static_cast<int>(q) & 3;
+  const float v = k & 1 ? sn : c;
+  return k == 1 || k == 2 ? -v : v;
 }
 
-// ------------------------------------------------------ tensor-core tiles
-// Both tiles compute phi[r][joff + j] = scale cos(sum_k X[row0 + r, k]
-// Omega[k, n0 + j] + delta[n0 + j]) for r < R, j < 256 (0 for r >= n_rows
-// or n0 + j >= q) with mma.sync: warp (wm, wn) of the 2 x 4 warp grid owns
-// rows wm*32 .. +31 and columns wn*64 .. +63, 2 x 8 accumulator tiles of
-// 16 x 8.  X and Omega are staged in a ring of 3 shared-memory buffers
-// (cp.async); step kt waits for its own copy only, while the copies of the
-// next two steps are in flight (one commit group a step, empty past the
-// end).
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// ------------------------------------------- mbarriers, TMA and clusters
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
 }
-// the cosine epilogue of either tile: accumulator (mi, ni) holds rows g
-// and g + 8 and columns 2 t4 and 2 t4 + 1 of its 16 x 8 tile
+// arrive on the barrier at the same offset in CTA `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, unsigned cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+// wait for the phase of parity `parity` to complete; a barrier that never
+// completes (a fault, not a slow copy) traps after ~2^32 clocks instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_addr(bar);
+  long long start = -1;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start < 0) start = now;
+    if (now - start > (1LL << 32)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+// the same box into the same offset of every CTA in `mask`, completing on
+// each one's barrier at the offset of `bar`
+__device__ __forceinline__ void tma_load_3d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+    unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "h"(mask),
+      "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// every warp of the CTA (barrier 1; the products' turns use 2 and 3)
+__device__ __forceinline__ void cta_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
+// The compute warpgroups issue their products in turns (barrier 2: warpgroup
+// 0 has issued, 3: warpgroup 1 has), so that one's products run while the
+// other waits for its own and hands its stage back
+__device__ __forceinline__ void take_turn(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(3 - wg), "n"(CONSUMERS) : "memory");
+}
+__device__ __forceinline__ void pass_turn(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(2 + wg), "n"(CONSUMERS)
+               : "memory");
+}
+
+// ------------------------------------------------------------------ wgmma
+// a (rows, 64-byte) K-major tile, 64-byte swizzled: 8-row groups 512 bytes
+// apart (SBO), the leading offset unused (1), layout type 2 (64B swizzle);
+// the product over its second 32 bytes of K starts 32 bytes in (+2)
+__device__ __forceinline__ uint64_t b_desc(const void* tile) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) |
+         (2ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until the warpgroup's committed products are done
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from touching the accumulators across the async
+// products (they are read and written by the tensor cores until the wait)
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                             \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                        \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                      \
+  "%24, %25, %26, %27, %28, %29, %30, %31, "                      \
+  "%32, %33, %34, %35, %36, %37, %38, %39, "                      \
+  "%40, %41, %42, %43, %44, %45, %46, %47, "                      \
+  "%48, %49, %50, %51, %52, %53, %54, %55, "                      \
+  "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_D8(i)                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),     \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_DREGS                                                  \
+  WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), \
+      WG_D8(48), WG_D8(56)
+
+// d += a b over one warpgroup: a (64, K) of X and b (128, K) of Omega^T,
+// both from shared memory; d[4 j + 2 h + e] is row 16 warp + lane / 4 +
+// 8 h, column 8 j + 2 (lane % 4) + e of the 64 x 128 tile
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b,
+                                      float) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_D
+      ", %64, %65, p, 1, 1;\n}\n"
+      : WG_DREGS
+      : "l"(a), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t a, uint64_t b,
+                                      bf16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_DREGS
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------------- the embedding
+// the stage goes back to every CTA of the cluster: threads 0, 16, 32, ...
+// of the warpgroup each tell one (the products are the warpgroup's,
+// complete for all its warps after its wait)
+__device__ __forceinline__ void release(uint64_t* empty, int stage, int CL) {
+  const int w = threadIdx.x % 128;
+  if (w % 16 == 0 && w / 16 < CL) mbar_arrive_at(&empty[stage], w / 16);
+}
+
+// A warpgroup's 64 x 128 tile of X Omega at column joff of the CTA's part
+// of phi, over d: each product's K (3xTF32 small*big, big*small, big*big,
+// small terms first; or one bf16 product), two a stage, goes into `acc`, and
+// every FLUSH_K of K `acc` is added into `sum` with a float32 add.  The
+// sums land in phi (rows wrow, wrow + 8, columns 8 j + 2 (lane % 4) (+ 1)),
+// the rows the slab has.  A warpgroup whose rows are all past the slab
+// (`active` false) hands each stage back unread.
 template <class T>
-__device__ __forceinline__ void store_phi(const float (&acc)[2][8][4],
-                                          const Args<T>& a, int n_rows,
-                                          int n0, float* phi, int ldphi,
-                                          int joff, bool flushed) {
-  const int lane = threadIdx.x % 32;
-  const int wm = threadIdx.x / 32 / 4;
-  const int wn = threadIdx.x / 32 % 4;
-  const int g = lane / 4;
-  const int t4 = lane % 4;
+__device__ __forceinline__ void embed_tile(
+    const Args<T>& a, unsigned char* smem, uint64_t* full, uint64_t* empty,
+    int& stage, unsigned& phase, int nk, int CL, bool active, float* phi,
+    int ldphi, int joff, int wrow) {
+  constexpr int KS = Elem<T>::K;
+  const int t4 = threadIdx.x % 4;
+  const int arow = threadIdx.x / 128 * WG_ROWS;   // the tile's rows of X
+  float acc[64];
+  float sum[64];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm * 32 + mi * 16 + g + h * 8;
-      if (r >= a.R) continue;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int j = wn * 64 + ni * 8 + 2 * t4;
-        const int gj = n0 + j;
-        float2* p = reinterpret_cast<float2*>(phi + r * ldphi + joff + j);
-        const float2 s = flushed ? *p : make_float2(0.0f, 0.0f);
-        float2 v;
-        v.x = (r < n_rows && gj < a.q)
-                  ? phi_of(s.x + acc[mi][ni][2 * h], to_float(a.delta[gj]),
-                           a.scale)
-                  : 0.0f;
-        v.y = (r < n_rows && gj + 1 < a.q)
-                  ? phi_of(s.y + acc[mi][ni][2 * h + 1],
-                           to_float(a.delta[gj + 1]), a.scale)
-                  : 0.0f;
-        *p = v;
+  for (int i = 0; i < 64; ++i) {
+    acc[i] = 0.0f;
+    sum[i] = 0.0f;
+  }
+  const int wg = threadIdx.x / 128;
+  if (!active) {   // rows past the slab: the turns and the stages go by
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&full[stage], phase);
+      take_turn(wg);
+      pass_turn(wg);
+      release(empty, stage, CL);
+      if (++stage == a.stages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
+    return;
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    mbar_wait(&full[stage], phase);
+    const unsigned char* st = smem + stage * STAGE_BYTES;
+    const uint64_t xbig = b_desc(st + arow * K_BYTES);
+    const uint64_t xsmall = b_desc(st + X_BYTES + arow * K_BYTES);
+    const uint64_t big = b_desc(st + 2 * X_BYTES);
+    const uint64_t small = b_desc(st + 2 * X_BYTES + B_BYTES);
+    take_turn(wg);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if constexpr (Elem<T>::split) {
+        wgmma(acc, xsmall + 2 * s, big + 2 * s, T());
+        wgmma(acc, xbig + 2 * s, small + 2 * s, T());
+        wgmma(acc, xbig + 2 * s, big + 2 * s, T());
+      } else {
+        wgmma(acc, xbig + 2 * s, big + 2 * s, T());
+      }
+    }
+    wgmma_commit();
+    pass_turn(wg);
+    wgmma_wait_all();
+    fence_acc(acc);
+    release(empty, stage, CL);
+    if (++stage == a.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    if ((kt + 1) % (FLUSH_K / KS) == 0 || kt + 1 == nk) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        sum[i] += acc[i];
+        acc[i] = 0.0f;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = wrow + 8 * h;
+    if (r >= a.R) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(phi + r * ldphi + joff + 8 * j + 2 * t4) =
+          make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
   }
 }
 
-// ---------------------------------------------------------------- float32
-// 3xTF32 on the tensor cores, K steps of 8: Xs[row][k] (48-byte rows) and
-// Bs[k][col] (264 floats, so the 32 lanes' scalar B reads hit 32 banks).
-// Each fragment element is split into big + small TF32 parts and each
-// 16 x 8 tile takes three m16n8k8 products, small terms first.
-__device__ __forceinline__ void embed_tile(const Args<float>& a, int b,
-                                           int row0, int n_rows, int n0,
-                                           char* stage, float* phi,
-                                           int ldphi, int joff) {
-  float* Xs = reinterpret_cast<float*>(stage);   // [3][TILE_M][F_LDA]
-  float* Bs = Xs + STAGES * TILE_M * F_LDA;      // [3][F_BK][F_LDB]
-  const int t = threadIdx.x;
-  const int warp = t / 32;
-  const int lane = t % 32;
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  const int d = a.d;
-  const int q = a.q;
-  const float* xb = a.x + ((long long)b * a.L + row0) * d;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-  auto load = [&](int buf, int k0) {
-    if (a.vec) {
-      if (t < TILE_M * 2) {                   // 64 rows x 2 chunks of 4
-        const int r = t / 2;
-        const int kc = (t % 2) * 4;
-        const bool ok = r < n_rows && k0 + kc < d;
-        cp_async16(&Xs[(buf * TILE_M + r) * F_LDA + kc],
-                   ok ? xb + (long long)r * d + k0 + kc : a.x, ok);
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {           // 8 rows x 64 chunks of 4
-        const int e = t + u * THREADS;
-        const int kk = e / (TILE_N / 4);
-        const int j = (e % (TILE_N / 4)) * 4;
-        const int gk = k0 + kk;
-        const bool ok = gk < d && n0 + j < q;
-        cp_async16(&Bs[(buf * F_BK + kk) * F_LDB + j],
-                   ok ? a.omega + (long long)gk * q + n0 + j : a.omega, ok);
-      }
-    } else {
-      for (int e = t; e < TILE_M * F_BK; e += THREADS) {
-        const int r = e / F_BK;
-        const int gk = k0 + e % F_BK;
-        Xs[(buf * TILE_M + r) * F_LDA + e % F_BK] =
-            (r < n_rows && gk < d) ? xb[(long long)r * d + gk] : 0.0f;
-      }
-      for (int e = t; e < F_BK * TILE_N; e += THREADS) {
-        const int kk = e / TILE_N;
-        const int j = e % TILE_N;
-        const int gk = k0 + kk;
-        Bs[(buf * F_BK + kk) * F_LDB + j] =
-            (gk < d && n0 + j < q) ? a.omega[(long long)gk * q + n0 + j]
-                                   : 0.0f;
-      }
-    }
-  };
-
-  const int g = lane / 4;
-  const int t4 = lane % 4;
-  const int nk = (d + F_BK - 1) / F_BK;
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nk) load(st, st * F_BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt % STAGES;
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();   // step kt's tile is complete; step kt-1's is free
-    if (kt + STAGES - 1 < nk)
-      load((kt + STAGES - 1) % STAGES, (kt + STAGES - 1) * F_BK);
-    cp_async_commit();
-    unsigned a_big[2][4];
-    unsigned a_small[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      unsigned raw[4];
-      ldmatrix_x4(raw, &Xs[(buf * TILE_M + wm * 32 + mi * 16 + lane % 16)
-                              * F_LDA + (lane / 16) * 4]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(raw[e], a_big[mi][e],
-                                             a_small[mi][e]);
-    }
-    const float* bk = Bs + (buf * F_BK + t4) * F_LDB + wn * 64 + g;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      unsigned b_big[2];
-      unsigned b_small[2];
-      split_tf32(__float_as_uint(bk[ni * 8]), b_big[0], b_small[0]);
-      split_tf32(__float_as_uint(bk[4 * F_LDB + ni * 8]), b_big[1],
-                 b_small[1]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_tf32(acc[mi][ni], a_small[mi], b_big[0], b_big[1]);
-        mma_tf32(acc[mi][ni], a_big[mi], b_small[0], b_small[1]);
-        mma_tf32(acc[mi][ni], a_big[mi], b_big[0], b_big[1]);
-      }
-    }
-    // every F_FLUSH steps the tensor cores' partial sums are added to the
-    // thread's own elements of phi with a float32 add: their accumulator
-    // then never carries more than 3 F_FLUSH products per element
-    if ((kt + 1) % F_FLUSH == 0 && kt + 1 < nk) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = wm * 32 + mi * 16 + g + h * 8;
-#pragma unroll
-          for (int ni = 0; ni < 8; ++ni) {
-            if (r < a.R) {
-              float2* p = reinterpret_cast<float2*>(
-                  phi + r * ldphi + joff + wn * 64 + ni * 8 + 2 * t4);
-              const float2 s = kt + 1 == F_FLUSH ? make_float2(0.0f, 0.0f)
-                                                 : *p;
-              *p = make_float2(s.x + acc[mi][ni][2 * h],
-                               s.y + acc[mi][ni][2 * h + 1]);
-            }
-            acc[mi][ni][2 * h] = 0.0f;
-            acc[mi][ni][2 * h + 1] = 0.0f;
-          }
+// The copying thread's part of a 256-column piece at column n0 of q: for
+// its two tiles, every stage of K once the cluster has handed the stage
+// back: this CTA's 16-row slices of the slab's X, multicast to the cluster,
+// and the piece's (128, K) tile of Omega^T (big and small parts of both in
+// float32)
+template <class T>
+__device__ __forceinline__ void copy_piece(const Args<T>& a,
+                                           unsigned char* smem,
+                                           uint64_t* full, uint64_t* empty,
+                                           int& stage, unsigned& phase,
+                                           int nk, int CL, int rank, int b,
+                                           int row0, int n_rows, int n0) {
+  constexpr int KS = Elem<T>::K;
+  constexpr int parts = Elem<T>::split ? 2 : 1;
+  const int slices = (n_rows + SLICE_ROWS - 1) / SLICE_ROWS;
+  const unsigned bytes = parts * (slices * SLICE_ROWS * K_BYTES + B_BYTES);
+  const unsigned short all = static_cast<unsigned short>((1 << CL) - 1);
+  for (int j0 = 0; j0 < PIECE; j0 += TILE_N) {
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_expect_tx(&full[stage], bytes);
+      unsigned char* st = smem + stage * STAGE_BYTES;
+      for (int i = rank; i < slices; i += CL) {
+        for (int part = 0; part < parts; ++part) {
+          void* dst = st + part * X_BYTES + i * SLICE_ROWS * K_BYTES;
+          const CUtensorMap* map = part ? &a.xs : &a.xb;
+          if (CL > 1)
+            tma_load_3d_multicast(dst, map, &full[stage], kt * KS,
+                                  row0 + i * SLICE_ROWS, b, all);
+          else
+            tma_load_3d(dst, map, &full[stage], kt * KS,
+                        row0 + i * SLICE_ROWS, b);
         }
+      }
+      tma_load_2d(st + 2 * X_BYTES, &a.tb, &full[stage], kt * KS, n0 + j0);
+      if (Elem<T>::split)
+        tma_load_2d(st + 2 * X_BYTES + B_BYTES, &a.ts, &full[stage],
+                    kt * KS, n0 + j0);
+      if (++stage == a.stages) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
   }
-  cp_async_wait_all();
-  __syncthreads();   // the stage is free for the caller
-  store_phi(acc, a, n_rows, n0, phi, ldphi, joff, nk > F_FLUSH);
 }
 
-// ---------------------------------------------------------------- bfloat16
-// bf16 on the tensor cores, K steps of 16: Xs[row][k] (48-byte rows) and
-// Bs[k][col] (528-byte rows), so the 8 rows an ldmatrix reads fall in 8
-// distinct 16-byte bank groups; one ldmatrix.x4 per 16 rows of X and one
-// ldmatrix.x4.trans per 16 columns of Omega a step.
-__device__ __forceinline__ void embed_tile(const Args<bf16>& a, int b,
-                                           int row0, int n_rows, int n0,
-                                           char* stage, float* phi,
-                                           int ldphi, int joff) {
-  bf16* Xs = reinterpret_cast<bf16*>(stage);     // [3][TILE_M][H_LDA]
-  bf16* Bs = Xs + STAGES * TILE_M * H_LDA;       // [3][H_BK][H_LDB]
-  const int t = threadIdx.x;
-  const int warp = t / 32;
-  const int lane = t % 32;
-  const int wm = warp / 4;
-  const int wn = warp % 4;
-  const int d = a.d;
-  const int q = a.q;
-  const bf16* xb = a.x + ((long long)b * a.L + row0) * d;
-  const bf16 zero = __float2bfloat16(0.0f);
-
-  float acc[2][8][4];
+// the cosine over a 256-column piece of phi: thread t < 256 takes column
+// joff + t down every row, 8 rows at a time; 0 past n_rows or q
+template <class T>
+__device__ __forceinline__ void cos_piece(const Args<T>& a, float* phi,
+                                          int ldphi, int joff, int n0,
+                                          int n_rows) {
+  const int gj = n0 + threadIdx.x;
+  const bool col = gj < a.q;
+  const float dl = col ? to_float(a.delta[gj]) : 0.0f;
+  float* p = phi + joff + threadIdx.x;
+  for (int r0 = 0; r0 < a.R; r0 += 8) {   // R % 16 == 0
+    float x[8];
+    float v[8];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-
-  auto load = [&](int buf, int k0) {
-    if (a.vec) {
-      if (t < TILE_M * 2) {                   // 64 rows x 2 chunks of 8
-        const int r = t / 2;
-        const int kc = (t % 2) * 8;
-        const bool ok = r < n_rows && k0 + kc < d;
-        cp_async16(&Xs[(buf * TILE_M + r) * H_LDA + kc],
-                   ok ? xb + (long long)r * d + k0 + kc : a.x, ok);
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {           // 16 rows x 32 chunks of 8
-        const int e = t + u * THREADS;
-        const int kk = e / (TILE_N / 8);
-        const int j = (e % (TILE_N / 8)) * 8;
-        const int gk = k0 + kk;
-        const bool ok = gk < d && n0 + j < q;
-        cp_async16(&Bs[(buf * H_BK + kk) * H_LDB + j],
-                   ok ? a.omega + (long long)gk * q + n0 + j : a.omega, ok);
-      }
-    } else {
-      for (int e = t; e < TILE_M * H_BK; e += THREADS) {
-        const int r = e / H_BK;
-        const int gk = k0 + e % H_BK;
-        Xs[(buf * TILE_M + r) * H_LDA + e % H_BK] =
-            (r < n_rows && gk < d) ? xb[(long long)r * d + gk] : zero;
-      }
-      for (int e = t; e < H_BK * TILE_N; e += THREADS) {
-        const int kk = e / TILE_N;
-        const int j = e % TILE_N;
-        const int gk = k0 + kk;
-        Bs[(buf * H_BK + kk) * H_LDB + j] =
-            (gk < d && n0 + j < q) ? a.omega[(long long)gk * q + n0 + j]
-                                   : zero;
-      }
+    for (int u = 0; u < 8; ++u) {
+      x[u] = p[(r0 + u) * ldphi] + dl;
+      v[u] = cos_rr(x[u]);
     }
-  };
-
-  const int nk = (d + H_BK - 1) / H_BK;
 #pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nk) load(st, st * H_BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt % STAGES;
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();   // step kt's tile is complete; step kt-1's is free
-    if (kt + STAGES - 1 < nk)
-      load((kt + STAGES - 1) % STAGES, (kt + STAGES - 1) * H_BK);
-    cp_async_commit();
-    unsigned af[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      ldmatrix_x4(af[mi], &Xs[(buf * TILE_M + wm * 32 + mi * 16 + lane % 16)
-                                  * H_LDA + (lane / 16) * 8]);
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {   // n tiles 2 np and 2 np + 1
-      unsigned bfr[4];
-      ldmatrix_x4_trans(bfr, &Bs[(buf * H_BK + lane % 16) * H_LDB + wn * 64 +
-                                 np * 16 + (lane / 16) * 8]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_bf16(acc[mi][2 * np], af[mi], bfr[0], bfr[1]);
-        mma_bf16(acc[mi][2 * np + 1], af[mi], bfr[2], bfr[3]);
-      }
+    for (int u = 0; u < 8; ++u) {
+      if (fabsf(x[u]) > 8192.0f) v[u] = cosf(x[u]);
+      p[(r0 + u) * ldphi] = col && r0 + u < n_rows ? a.scale * v[u] : 0.0f;
     }
   }
-  cp_async_wait_all();
-  __syncthreads();   // the stage is free for the caller
-  store_phi(acc, a, n_rows, n0, phi, ldphi, joff, false);
 }
 
 // ---------------------------------------------------------------- kernel
 template <class T>
-__global__ void __launch_bounds__(THREADS, 2) fused_kernel(Args<T> a) {
-  extern __shared__ float4 smem4[];
-  char* stage = reinterpret_cast<char*>(smem4);
+__global__ void __launch_bounds__(THREADS, 1)
+    fused_kernel(const __grid_constant__ Args<T> a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr int KS = Elem<T>::K;
   const int R = a.R;
   const int QC = a.QC;
+  const int S = a.stages;
   const int ldphi = QC + PHI_PAD;
-  float* Ps = reinterpret_cast<float*>(stage + STAGE_BYTES);  // [R][CMAX]
-  float* Rv = Ps + R * CMAX;                                  // [R][CMAX]
-  float* phi = Rv + R * CMAX;                                 // [R][ldphi]
-  float* ths = reinterpret_cast<float*>(stage);               // [256][CMAX]
-  float* red = ths + TILE_N * CMAX;                           // [4][64][CMAX]
+  float* Rv = reinterpret_cast<float*>(smem + S * STAGE_BYTES);  // [R][CMAX]
+  float* phi = Rv + R * CMAX;                                    // [R][ldphi]
+  uint64_t* full = reinterpret_cast<uint64_t*>(phi + R * ldphi);
+  uint64_t* empty = full + S;
+  // step 2 reuses the ring: theta's piece, the quarter sums, and this
+  // CTA's partial residual, which the cluster reads before the ring fills
+  float* ths = reinterpret_cast<float*>(smem);                   // [256][CMAX]
+  float* red = ths + PIECE * CMAX;                               // [4][R][CMAX]
+  float* Ps = red + 4 * R * CMAX;                                // [R][CMAX]
 
   cg::cluster_group cluster = cg::this_cluster();
   const int CL = static_cast<int>(cluster.num_blocks());
-  const int col0 = static_cast<int>(cluster.block_rank()) * QC;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int col0 = rank * QC;
   // cluster y: raw row y / S_raw, group y % S_raw; then the parity row's
   // S_par groups
   const int y = blockIdx.y;
@@ -470,69 +554,98 @@ __global__ void __launch_bounds__(THREADS, 2) fused_kernel(Args<T> a) {
   const bool raw = y < raw_clusters;
   const int b = raw ? y / a.S_raw : a.n_real;
   const int s = raw ? y % a.S_raw : y - raw_clusters;
-  const int S = raw ? a.S_raw : a.S_par;
+  const int S_ = raw ? a.S_raw : a.S_par;
   const int q = a.q;
   const int c = a.c;
   const int live = raw ? a.live_raw : a.live_par;
   const int n_slabs = (live + R - 1) / R;
-  const bool direct = a.S_raw == 1 && a.S_par == 1;
-  float* out = a.out + (long long)(direct ? b : y) * q * c;
+  const int nk = (a.d + KS - 1) / KS;
   const int t = threadIdx.x;
   const int warp = t / 32;
   const int lane = t % 32;
+  const int wg = t / 128;
+  // a compute thread's first row of the slab in its warpgroup's tile
+  const int wrow = wg * WG_ROWS + (warp % 4) * 16 + lane / 4;
+  const bool direct = a.S_raw == 1 && a.S_par == 1;
+  float* out = a.out + (long long)(direct ? b : y) * q * c;
+  int stage = 0;   // the ring's position, for the copier and the computers
+  unsigned phase = 0;
+
+  if (t == 0) {
+    if (smem_addr(smem) % 1024 != 0) __trap();   // the tiles' alignment
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CL * (CONSUMERS / 128));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  // every CTA's barriers are set before a copy or an arrive reaches them
+  cluster_sync();
+  if (wg == 1) pass_turn(1);   // warpgroup 0 issues first
 
   bool first = true;
-  for (int slab = s; slab < n_slabs; slab += S) {
+  for (int slab = s; slab < n_slabs; slab += S_) {
     const int row0 = slab * R;
     const int n_rows = min(R, live - row0);
-    __syncthreads();   // the previous slab is done with phi and the stage
+    cta_sync();   // the previous slab is done with phi
     // 1. this CTA's (R, QC) part of phi
     if (raw) {
-      for (int j0 = 0; j0 < QC; j0 += TILE_N) {
-        if (col0 + j0 < q) {
-          embed_tile(a, b, row0, n_rows, col0 + j0, stage, phi, ldphi, j0);
-        } else {
-          for (int e = t; e < R * TILE_N; e += THREADS)
-            phi[(e / TILE_N) * ldphi + j0 + e % TILE_N] = 0.0f;
+      const bool active = wg * WG_ROWS < n_rows;
+      for (int p0 = 0; p0 < QC; p0 += PIECE) {
+        if (t < CONSUMERS) {
+          for (int j0 = p0; j0 < p0 + PIECE; j0 += TILE_N)
+            embed_tile(a, smem, full, empty, stage, phase, nk, CL, active,
+                       phi, ldphi, j0, wrow);
+        } else if (t == CONSUMERS) {
+          copy_piece(a, smem, full, empty, stage, phase, nk, CL, rank, b,
+                     row0, n_rows, col0 + p0);
         }
+        cta_sync();   // the piece's sums are in phi
+        if (t < PIECE) cos_piece(a, phi, ldphi, p0, col0 + p0, n_rows);
       }
-    } else {   // 16 rows of loads in flight a thread (R % 16 == 0)
-      for (int r0 = 0; r0 < R; r0 += 16) {
-        for (int j = t; j < QC; j += THREADS) {
-          const int gj = col0 + j;
-          float v[16];
+    } else {   // element t + THREADS i: 8 loads in flight a thread
+      for (int e0 = t; e0 < R * QC; e0 += 8 * THREADS) {
+        float v[8];
 #pragma unroll
-          for (int u = 0; u < 16; ++u)
-            v[u] = (r0 + u < n_rows && gj < q)
-                       ? to_float(a.pphi[(long long)(row0 + r0 + u) * q + gj])
-                       : 0.0f;
+        for (int u = 0; u < 8; ++u) {
+          const int e = e0 + u * THREADS;
+          const int r = e / QC;
+          const int gj = col0 + e % QC;
+          v[u] = e < R * QC && r < n_rows && gj < q
+                     ? to_float(a.pphi[(long long)(row0 + r) * q + gj])
+                     : 0.0f;
+        }
 #pragma unroll
-          for (int u = 0; u < 16; ++u) phi[(r0 + u) * ldphi + j] = v[u];
+        for (int u = 0; u < 8; ++u) {
+          const int e = e0 + u * THREADS;
+          if (e < R * QC) phi[e / QC * ldphi + e % QC] = v[u];
         }
       }
     }
-    __syncthreads();
+    cta_sync();
 
     for (int c0 = 0; c0 < c; c0 += CMAX) {
       const int cw = min(CMAX, c - c0);
       // 2a. partial residual of this CTA's columns.  Thread (rg, cg) of
-      //     warp (rh, js) sums rows rh*8 + rg + 16k (k < R/16) and label
-      //     columns cg*4 .. +3 over the 64 columns js*64 .. +63 of each
-      //     256-column piece: 8 float4 reads of phi and theta feed 64 FMA.
-      //     The four column quarters are added in order through shared
-      //     memory.
+      //     warp (js, rp) sums rows 8 kb + rg (kb = rp, rp + 3, ...,
+      //     kb < R/8) and label columns cg*4 .. +3 over the 64 columns
+      //     js*64 .. +63 of each 256-column piece: float4 reads of phi and
+      //     theta feed 16 FMA each.  The four column quarters are added in
+      //     order through shared memory.
       {
+        constexpr int KB = (MAX_SLAB / 8 + 2) / 3;   // row blocks a thread
         const int rg = lane % 8;
         const int cg = lane / 8;
-        const int rh = warp % 2;
-        const int js = warp / 2;
-        float acc[4][4];
+        const int js = warp % 4;
+        const int rp = warp / 4;
+        float acc[KB][4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
+        for (int k = 0; k < KB; ++k)
 #pragma unroll
           for (int h = 0; h < 4; ++h) acc[k][h] = 0.0f;
-        for (int p0 = 0; p0 < QC && col0 + p0 < q; p0 += TILE_N) {
-          {   // thread t stages theta's row col0 + p0 + t: 16 loads in flight
+        for (int p0 = 0; p0 < QC && col0 + p0 < q; p0 += PIECE) {
+          if (t < PIECE) {   // theta's row col0 + p0 + t: 16 loads in flight
             const int gj = col0 + p0 + t;
             float v[CMAX];
 #pragma unroll
@@ -546,26 +659,22 @@ __global__ void __launch_bounds__(THREADS, 2) fused_kernel(Args<T> a) {
                   make_float4(v[4 * v4], v[4 * v4 + 1], v[4 * v4 + 2],
                               v[4 * v4 + 3]);
           }
-          __syncthreads();
-#pragma unroll 4
-          for (int jj = 0; jj < TILE_N / 4; jj += 4) {
-            const int j = js * (TILE_N / 4) + jj;
-            float4 ph[4];
+          cta_sync();
+#pragma unroll 2
+          for (int jj = 0; jj < PIECE / 4; jj += 4) {
+            const int j = js * (PIECE / 4) + jj;
             float4 th[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int r = rh * 8 + rg + 16 * k;
-              ph[k] = r < R ? *reinterpret_cast<const float4*>(
-                                  phi + r * ldphi + p0 + j)
-                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            }
 #pragma unroll
             for (int h = 0; h < 4; ++h)
               th[h] = *reinterpret_cast<const float4*>(
                   ths + (j + h) * CMAX + cg * 4);
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float pk[4] = {ph[k].x, ph[k].y, ph[k].z, ph[k].w};
+            for (int k = 0; k < KB; ++k) {
+              const int r = 8 * (rp + 3 * k) + rg;
+              if (r >= R) continue;
+              const float4 ph =
+                  *reinterpret_cast<const float4*>(phi + r * ldphi + p0 + j);
+              const float pk[4] = {ph.x, ph.y, ph.z, ph.w};
 #pragma unroll
               for (int h = 0; h < 4; ++h) {
                 acc[k][0] = fmaf(pk[h], th[h].x, acc[k][0]);
@@ -575,24 +684,25 @@ __global__ void __launch_bounds__(THREADS, 2) fused_kernel(Args<T> a) {
               }
             }
           }
-          __syncthreads();   // the next piece restages theta
+          cta_sync();   // the next piece restages theta
         }
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int r = rh * 8 + rg + 16 * k;
+        for (int k = 0; k < KB; ++k) {
+          const int r = 8 * (rp + 3 * k) + rg;
           if (r < R)
-            *reinterpret_cast<float4*>(red + (js * TILE_M + r) * CMAX +
-                                       cg * 4) =
+            *reinterpret_cast<float4*>(red + (js * R + r) * CMAX + cg * 4) =
                 make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
         }
-        __syncthreads();
+        cta_sync();
         for (int e = t; e < R * CMAX; e += THREADS)
-          Ps[e] = ((red[e] + red[TILE_M * CMAX + e]) +
-                   red[2 * TILE_M * CMAX + e]) +
-                  red[3 * TILE_M * CMAX + e];
+          Ps[e] = ((red[e] + red[R * CMAX + e]) + red[2 * R * CMAX + e]) +
+                  red[3 * R * CMAX + e];
       }
+      // the stage ring's next copies (async proxy) come after these reads
+      // and writes of it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       // 2b. R = mask (sum over the cluster's CTAs in rank order - Y)
-      cluster.sync();
+      cluster_sync();
       for (int e = t; e < R * CMAX; e += THREADS) {
         const int r = e / CMAX;
         const int cc = e % CMAX;
@@ -611,15 +721,15 @@ __global__ void __launch_bounds__(THREADS, 2) fused_kernel(Args<T> a) {
         }
         Rv[e] = v;
       }
-      cluster.sync();   // every CTA has read the partials; Rv is complete
+      cluster_sync();   // every CTA has read the partials; Rv is complete
       // 3. phi^T R for this CTA's columns, added to the group's sum:
-      //    thread (jg, cg) sums columns jg*4 .. +3 and label columns
-      //    cg*4 .. +3 of each 256-column piece over the slab's rows, two
-      //    float4 reads and 16 FMA a row
-      {
+      //    thread (jg, cg) of the first 256 sums columns jg*4 .. +3 and
+      //    label columns cg*4 .. +3 of each 256-column piece over the
+      //    slab's rows, two float4 reads and 16 FMA a row
+      if (t < PIECE) {
         const int cg = t % 4;
         const int jg = t / 4;
-        for (int p0 = 0; p0 < QC && col0 + p0 < q; p0 += TILE_N) {
+        for (int p0 = 0; p0 < QC && col0 + p0 < q; p0 += PIECE) {
           const int j = p0 + jg * 4;
           float acc[4][4];
 #pragma unroll
@@ -662,6 +772,7 @@ __global__ void __launch_bounds__(THREADS, 2) fused_kernel(Args<T> a) {
         for (int cc = 0; cc < c; ++cc) out[(long long)gj * c + cc] = 0.0f;
     }
   }
+  if (wg == 0) take_turn(0);   // the last turn warpgroup 1 passed
 }
 
 // g[b] = sum over the groups s of row b of its partial, in order s = 0, 1,
@@ -681,8 +792,18 @@ __global__ void combine_kernel(const float* __restrict__ part,
   g[i] = v;
 }
 
-long long smem_bytes(int R, int QC) {
-  return STAGE_BYTES + 2LL * R * CMAX * 4 + (long long)R * (QC + PHI_PAD) * 4;
+// the stage ring, the residual, phi, the barriers
+long long smem_bytes(int R, int QC, int stages) {
+  return (long long)stages * STAGE_BYTES + (long long)R * CMAX * 4 +
+         (long long)R * (QC + PHI_PAD) * 4 + 16LL * stages;
+}
+
+bool plan_ok(int R, int QC, int stages) {
+  return R >= SLICE_ROWS && R <= MAX_SLAB && R % SLICE_ROWS == 0 &&
+         QC >= PIECE && QC % PIECE == 0 && stages >= 1 &&
+         stages <= MAX_STAGES &&
+         stages * STAGE_BYTES >= (PIECE + 5 * R) * CMAX * 4 &&
+         smem_bytes(R, QC, stages) <= MAX_SMEM;
 }
 
 cudaLaunchConfig_t config(int cluster, int clusters, long long smem,
@@ -703,9 +824,9 @@ cudaLaunchConfig_t config(int cluster, int clusters, long long smem,
 
 // how many clusters of this shape the device holds at once
 template <class T>
-int max_clusters(int R, int cluster, int QC) {
-  const long long smem = smem_bytes(R, QC);
-  if (smem > MAX_SMEM || cluster < 1 || cluster > MAX_CLUSTER)
+int max_clusters(int R, int cluster, int QC, int stages) {
+  const long long smem = smem_bytes(R, QC, stages);
+  if (!plan_ok(R, QC, stages) || cluster < 1 || cluster > MAX_CLUSTER)
     return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -718,59 +839,119 @@ int max_clusters(int R, int cluster, int QC) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-template <class T>
-int launch(Args<T> a, int rows, int cluster, float* g, float* part,
-           cudaStream_t stream) {
-  const int R = a.R;
-  const long long smem = smem_bytes(R, a.QC);
-  if ((R != 16 && R != 32 && R != 64) || cluster < 1 ||
-      cluster > MAX_CLUSTER || a.QC < TILE_N || a.QC % TILE_N != 0 ||
-      (long long)cluster * a.QC < a.q || (cluster - 1) * a.QC >= a.q ||
-      a.S_raw < 1 || a.S_par < 1 || smem > MAX_SMEM ||
-      (rows > a.n_real && a.pphi == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool direct = a.S_raw == 1 && a.S_par == 1;
-  if (!direct && part == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.out = direct ? g : part;
-  const int clusters = a.n_real * a.S_raw + (rows > a.n_real ? a.S_par : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = config(cluster, clusters, smem, stream, attr);
-  err = cudaLaunchKernelEx(&cfg, fused_kernel<T>, a);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!direct) {
-    const long long qc = (long long)a.q * a.c;
-    const long long n = rows * qc;
-    combine_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                     stream>>>(part, g, n, qc, a.n_real, a.S_raw, a.S_par);
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link
+// against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
-  return static_cast<int>(cudaGetLastError());
+  return fn;
+}
+
+// a tiled map over `rank` dims (innermost first) with boxes of `box`;
+// elements outside the tensor read as 0
+bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
+            const void* ptr, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box,
+            CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encoder();
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(ptr),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <class T>
-int entry(const T* x, const T* omega, const T* delta, const T* theta,
-          const T* y, const float* mask, const T* pphi, float* part,
-          float* g, int rows, int n_real, int L, int d, int q, int c,
-          int q_true, int live_raw, int live_par, int slab_rows,
-          int cluster, int cols_per_cta, int groups_raw, int groups_par,
-          cudaStream_t stream) {
-  constexpr int epv = 16 / sizeof(T);   // elements per 16-byte copy
+int entry(const T* x_big, const T* x_small, const T* omega_big,
+          const T* omega_small,
+          const T* delta, const T* theta, const T* y, const float* mask,
+          const T* pphi, float* part, float* g, int rows, int n_real, int L,
+          int d, int q, int c, int q_true, int live_raw, int live_par,
+          int slab_rows, int cluster, int cols_per_cta, int groups_raw,
+          int groups_par, int stages, cudaStream_t stream) {
+  constexpr int es = sizeof(T);
+  constexpr int KS = Elem<T>::K;
   const auto aligned = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
   };
+  const bool split = Elem<T>::split;
+  if (!plan_ok(slab_rows, cols_per_cta, stages) || cluster < 1 ||
+      cluster > MAX_CLUSTER || (long long)cluster * cols_per_cta < q ||
+      (cluster - 1) * cols_per_cta >= q || groups_raw < 1 ||
+      groups_par < 1 || (rows > n_real && pphi == nullptr) ||
+      d % (16 / es) != 0 || !aligned(x_big) || !aligned(omega_big) ||
+      (split && (x_small == nullptr || omega_small == nullptr ||
+                 !aligned(x_small) || !aligned(omega_small))))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args<T> a;
-  a.x = x;
-  a.omega = omega;
+  // the four maps of the last call, reused while its tensors and shapes
+  // stay (encoding one is a driver call)
+  struct Maps {
+    const void* ptr[4];
+    int d, L, n_real, q;
+    CUtensorMap xb, xs, tb, ts;
+  };
+  static thread_local Maps last = {};
+  const void* ptr[4] = {x_big, split ? x_small : x_big, omega_big,
+                        split ? omega_small : omega_big};
+  if (last.ptr[0] != ptr[0] || last.ptr[1] != ptr[1] ||
+      last.ptr[2] != ptr[2] || last.ptr[3] != ptr[3] || last.d != d ||
+      last.L != L || last.n_real != n_real || last.q != q) {
+    const cuuint64_t x_dims[3] = {static_cast<cuuint64_t>(d),
+                                  static_cast<cuuint64_t>(L),
+                                  static_cast<cuuint64_t>(n_real)};
+    const cuuint64_t x_strides[2] = {static_cast<cuuint64_t>(d) * es,
+                                     static_cast<cuuint64_t>(L) * d * es};
+    const cuuint32_t x_box[3] = {KS, SLICE_ROWS, 1};   // 64 bytes of K
+    const cuuint64_t b_dims[2] = {static_cast<cuuint64_t>(d),
+                                  static_cast<cuuint64_t>(q)};
+    const cuuint64_t b_strides[1] = {static_cast<cuuint64_t>(d) * es};
+    const cuuint32_t b_box[2] = {KS, TILE_N};
+    last.ptr[0] = nullptr;   // unusable until all four are encoded
+    if (!encode(&last.xb, Elem<T>::tma, 3, ptr[0], x_dims, x_strides, x_box,
+                CU_TENSOR_MAP_SWIZZLE_64B) ||
+        !encode(&last.xs, Elem<T>::tma, 3, ptr[1], x_dims, x_strides, x_box,
+                CU_TENSOR_MAP_SWIZZLE_64B) ||
+        !encode(&last.tb, Elem<T>::tma, 2, ptr[2], b_dims, b_strides, b_box,
+                CU_TENSOR_MAP_SWIZZLE_64B) ||
+        !encode(&last.ts, Elem<T>::tma, 2, ptr[3], b_dims, b_strides, b_box,
+                CU_TENSOR_MAP_SWIZZLE_64B))
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < 4; ++i) last.ptr[i] = ptr[i];
+    last.d = d;
+    last.L = L;
+    last.n_real = n_real;
+    last.q = q;
+  }
+  a.xb = last.xb;
+  a.xs = last.xs;
+  a.tb = last.tb;
+  a.ts = last.ts;
   a.delta = delta;
   a.theta = theta;
   a.y = y;
   a.mask = mask;
   a.pphi = pphi;
-  a.out = g;
   a.n_real = n_real;
   a.L = L;
   a.d = d;
@@ -782,51 +963,87 @@ int entry(const T* x, const T* omega, const T* delta, const T* theta,
   a.QC = cols_per_cta;
   a.S_raw = groups_raw;
   a.S_par = groups_par;
+  a.stages = stages;
   a.scale = static_cast<float>(std::sqrt(2.0 / q_true));
-  a.vec = q % epv == 0 && d % epv == 0 && aligned(omega) && aligned(x);
-  return launch(a, rows, cluster, g, part, stream);
+  const bool direct = groups_raw == 1 && groups_par == 1;
+  if (!direct && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.out = direct ? g : part;
+  const long long smem = smem_bytes(slab_rows, cols_per_cta, stages);
+  const int clusters = n_real * groups_raw + (rows > n_real ? groups_par : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config(cluster, clusters, smem, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, fused_kernel<T>, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!direct) {
+    const long long qc = (long long)q * c;
+    const long long n = rows * qc;
+    combine_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                     stream>>>(part, g, n, qc, n_real, groups_raw,
+                               groups_par);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x: (n_real, L, d), omega: (d, q), delta: (q,), theta: (q, c),
-// y: (rows, L, c), mask: (rows, L) float32, pphi: (L, q) or nullptr (then
-// rows == n_real); part: (n_real * groups_raw + groups_par, q, c) float32
-// scratch (nullptr when both group counts are 1), g: (rows, q, c) float32;
-// contiguous, on the device of `stream`.  The launch plan (slab_rows in
-// {16, 32, 64}, cluster <= 8 CTAs of cols_per_cta columns each, a multiple
-// of 256, and the groups of slabs of a raw row and of the parity row)
-// comes from ops.fused_plan.  Returns the first failing call's cudaError_t
-// (cudaErrorInvalidValue for a plan the kernel does not take).
+// x_big / x_small: (n_real, L, d) X and omega_big / omega_small: (q, d)
+// Omega^T, each as its big and small TF32 parts (ops.prepare_rff_operands),
+// delta: (q,), theta: (q, c), y: (rows, L, c), mask: (rows, L) float32,
+// pphi: (L, q) or nullptr (then rows == n_real); part: (n_real * groups_raw
+// + groups_par, q, c) float32 scratch (nullptr when both group counts are
+// 1), g: (rows, q, c) float32; contiguous, 16-byte aligned, d a multiple of
+// 4, on the device of `stream`.  The launch plan (slab_rows a multiple of
+// 16 up to 128, cluster <= 8 CTAs of cols_per_cta columns each, a multiple
+// of 256, the groups of slabs of a raw row and of the parity row, and the
+// stages of the copy ring) comes from ops.fused_plan.  Returns the first
+// failing call's cudaError_t (cudaErrorInvalidValue for a plan or a layout
+// the kernel does not take).
 extern "C" int rff_linreg_grad_masked_f32(
-    const float* x, const float* omega, const float* delta,
-    const float* theta, const float* y, const float* mask, const float* pphi,
-    float* part, float* g, int rows, int n_real, int L, int d, int q, int c,
-    int q_true, int live_raw, int live_par, int slab_rows, int cluster,
-    int cols_per_cta, int groups_raw, int groups_par, cudaStream_t stream) {
-  return entry(x, omega, delta, theta, y, mask, pphi, part, g, rows, n_real,
-               L, d, q, c, q_true, live_raw, live_par, slab_rows, cluster,
-               cols_per_cta, groups_raw, groups_par, stream);
+    const float* x_big, const float* x_small, const float* omega_big,
+    const float* omega_small, const float* delta, const float* theta,
+    const float* y, const float* mask, const float* pphi, float* part,
+    float* g, int rows, int n_real, int L, int d, int q, int c, int q_true,
+    int live_raw, int live_par, int slab_rows, int cluster, int cols_per_cta,
+    int groups_raw, int groups_par, int stages, cudaStream_t stream) {
+  return entry(x_big, x_small, omega_big, omega_small, delta, theta, y, mask,
+               pphi, part,
+               g, rows, n_real, L, d, q, c, q_true, live_raw, live_par,
+               slab_rows, cluster, cols_per_cta, groups_raw, groups_par,
+               stages, stream);
 }
 
-// The same with bfloat16 x, omega, delta, theta, y and pphi.
+// The same with bfloat16 X and Omega^T (x_big, omega_big; the small parts
+// unused), delta, theta, y and pphi; d a multiple of 8.
 extern "C" int rff_linreg_grad_masked_bf16(
-    const __nv_bfloat16* x, const __nv_bfloat16* omega,
-    const __nv_bfloat16* delta, const __nv_bfloat16* theta,
-    const __nv_bfloat16* y, const float* mask, const __nv_bfloat16* pphi,
-    float* part, float* g, int rows, int n_real, int L, int d, int q, int c,
-    int q_true, int live_raw, int live_par, int slab_rows, int cluster,
-    int cols_per_cta, int groups_raw, int groups_par, cudaStream_t stream) {
-  return entry(x, omega, delta, theta, y, mask, pphi, part, g, rows, n_real,
-               L, d, q, c, q_true, live_raw, live_par, slab_rows, cluster,
-               cols_per_cta, groups_raw, groups_par, stream);
+    const __nv_bfloat16* x_big, const __nv_bfloat16* x_small,
+    const __nv_bfloat16* omega_big, const __nv_bfloat16* omega_small,
+    const __nv_bfloat16* delta,
+    const __nv_bfloat16* theta, const __nv_bfloat16* y, const float* mask,
+    const __nv_bfloat16* pphi, float* part, float* g, int rows, int n_real,
+    int L, int d, int q, int c, int q_true, int live_raw, int live_par,
+    int slab_rows, int cluster, int cols_per_cta, int groups_raw,
+    int groups_par, int stages, cudaStream_t stream) {
+  return entry(x_big, x_small, omega_big, omega_small, delta, theta, y, mask,
+               pphi, part,
+               g, rows, n_real, L, d, q, c, q_true, live_raw, live_par,
+               slab_rows, cluster, cols_per_cta, groups_raw, groups_par,
+               stages, stream);
 }
 
 // The number of clusters of `cluster` CTAs, each holding a (slab_rows,
-// cols_per_cta) part of phi, that the current device holds at once
-// (cudaOccupancyMaxActiveClusters); a negative value is a cudaError_t.
+// cols_per_cta) part of phi and `stages` copy stages, that the current
+// device holds at once (cudaOccupancyMaxActiveClusters); a negative value
+// is a cudaError_t.
 extern "C" int rff_linreg_grad_max_clusters(int bf16, int slab_rows,
-                                            int cluster, int cols_per_cta) {
-  return bf16 ? max_clusters<__nv_bfloat16>(slab_rows, cluster, cols_per_cta)
-              : max_clusters<float>(slab_rows, cluster, cols_per_cta);
+                                            int cluster, int cols_per_cta,
+                                            int stages) {
+  return bf16 ? max_clusters<__nv_bfloat16>(slab_rows, cluster, cols_per_cta,
+                                            stages)
+              : max_clusters<float>(slab_rows, cluster, cols_per_cta,
+                                    stages);
 }

@@ -18,7 +18,10 @@ over: the CUDA kernels mask their ragged edges themselves.
 kernel (a ``linreg_grad_masked`` call is one launch of that kernel, though
 it runs as two CUDA grids, the second summing its row segments;
 ``linreg_grad_batched`` is a launch of ``linreg_grad_masked`` without a
-mask, ``rff_embed_batched`` one of ``rff_embed``).  CPU calls are not
+mask, ``rff_embed_batched`` one of ``rff_embed``).  ``PREPARES`` counts the
+operand copies a kernel keeps, made on the card: ``prepare_rff_operands``'
+split X and Omega^T for ``rff_linreg_grad_masked``, once per deployment on
+the main path, once per call where the caller passes none.  CPU calls are not
 counted.
 """
 from __future__ import annotations
@@ -33,6 +36,7 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {"rff_embed": 0, "parity_encode_batched": 0,
             "linreg_grad_masked": 0, "rff_linreg_grad_masked": 0,
             "linreg_grad": 0, "parity_encode": 0, "gqa_decode": 0}
+PREPARES = {"rff_linreg_grad_masked": 0}
 
 _FUSED_SYMBOLS = {torch.float32: "rff_linreg_grad_masked_f32",
                   torch.bfloat16: "rff_linreg_grad_masked_bf16"}
@@ -62,21 +66,26 @@ LG_QB = 512
 MK_THREADS = 256
 MK_ROWS = 8
 MK_ROWS_WIDE = 4
-# the fused kernel's layout (csrc/rff_linreg_grad.cu): columns of an
-# embedding tile, CTAs of a cluster, slab heights, the staging area, the
-# label columns per pass, and the shared memory of a block and of an SM
-FUSED_TILE_N = 256
+# the fused kernel's layout (csrc/rff_linreg_grad.cu): the pieces a CTA's
+# columns come in, CTAs of a cluster, slab heights, a stage of the copy ring
+# (64 bytes of K of the big and small parts of 128 rows of X and of a
+# 128-row tile of Omega^T) and the most stages, the label columns per pass,
+# and the shared memory of a block and of an SM
+FUSED_PIECE = 256
 FUSED_MAX_CLUSTER = 8
-FUSED_SLAB_ROWS = (64, 32, 16)
-FUSED_STAGE_BYTES = 34560
+FUSED_SLAB_ROWS = (112, 64, 32, 16)
+FUSED_STAGE_BYTES = 32768
+FUSED_MAX_STAGES = 3
 FUSED_CMAX = 16
 FUSED_MAX_SMEM = 232448
 SM_SMEM = 233472
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero ``LAUNCHES`` and ``PREPARES``."""
+    for counts in (LAUNCHES, PREPARES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(name: str, *tensors, dtype=torch.float32,
@@ -131,12 +140,12 @@ def _sm_count(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _resident_clusters(index: int, bf16: int, slab_rows: int, cluster: int,
-                       cols_per_cta: int) -> int:
+                       cols_per_cta: int, stages: int) -> int:
     """Clusters of the fused kernel's shape that device `index` holds at
     once (cudaOccupancyMaxActiveClusters)."""
     with torch.cuda.device(index):
         n = build.kernel("rff_linreg_grad_max_clusters")(
-            bf16, slab_rows, cluster, cols_per_cta)
+            bf16, slab_rows, cluster, cols_per_cta, stages)
     if n < 0:
         raise RuntimeError("rff_linreg_grad_masked: occupancy query failed "
                            f"with cudaError_t {-n}")
@@ -152,46 +161,60 @@ def linreg_grad_splits(m: int, q: int, n_sm: int) -> int:
 
 class FusedPlan(NamedTuple):
     """Launch plan of the fused kernel: rows of phi per slab, CTAs per
-    cluster, columns of q per CTA, and the groups of slabs (one cluster
-    each) of a raw row and of the parity row."""
+    cluster, columns of q per CTA, the groups of slabs (one cluster each)
+    of a raw row and of the parity row, and the stages of the copy ring."""
     slab_rows: int
     cluster: int
     cols_per_cta: int
     groups_raw: int
     groups_par: int
+    stages: int
 
 
-def fused_smem_bytes(slab_rows: int, cols_per_cta: int) -> int:
-    """A CTA's shared memory: the staging area, the partial and the full
-    residual (slab_rows, 16), and its (slab_rows, cols_per_cta + 4) part of
-    phi, all float32."""
-    return (FUSED_STAGE_BYTES + 2 * slab_rows * FUSED_CMAX * 4
-            + slab_rows * (cols_per_cta + 4) * 4)
+def fused_smem_bytes(slab_rows: int, cols_per_cta: int, stages: int) -> int:
+    """A CTA's shared memory: the copy ring, the residual (slab_rows, 16),
+    its (slab_rows, cols_per_cta + 4) part of phi, all float32, and two
+    mbarriers a stage."""
+    return (stages * FUSED_STAGE_BYTES + slab_rows * FUSED_CMAX * 4
+            + slab_rows * (cols_per_cta + 4) * 4 + 16 * stages)
+
+
+def fused_stages(slab_rows: int, cols_per_cta: int) -> int:
+    """Stages of the copy ring that fit beside phi, at most
+    FUSED_MAX_STAGES; 0 where none fits or the ring cannot hold the
+    residual's theta piece, quarter sums and partial, which reuse it."""
+    room = FUSED_MAX_SMEM - fused_smem_bytes(slab_rows, cols_per_cta, 0)
+    stages = min(FUSED_MAX_STAGES, room // (FUSED_STAGE_BYTES + 16))
+    need = (FUSED_PIECE + 5 * slab_rows) * FUSED_CMAX * 4
+    return stages if stages >= 1 and stages * FUSED_STAGE_BYTES >= need \
+        else 0
 
 
 def fused_max_q() -> int:
     """The widest q the fused kernel takes: 8 CTAs of the most columns
-    whose 16-row slab of phi fits a block's shared memory."""
-    rows = FUSED_SLAB_ROWS[-1]
-    cols = ((FUSED_MAX_SMEM - fused_smem_bytes(rows, 0)) // (4 * rows)
-            // FUSED_TILE_N * FUSED_TILE_N)
+    whose 16-row slab of phi fits a block's shared memory beside a stage."""
+    rows, cols = FUSED_SLAB_ROWS[-1], FUSED_PIECE
+    while fused_stages(rows, cols + FUSED_PIECE):
+        cols += FUSED_PIECE
     return FUSED_MAX_CLUSTER * cols
 
 
 def fused_plan(q: int, n_real: int, live: tuple, resident) -> FusedPlan:
     """Split q over a cluster of up to 8 CTAs in whole 256-column tiles and
-    take the tallest slab whose phi fits a CTA's shared memory.  Then cut
-    the slabs of every row into groups (one cluster each) of at most
-    `chain` slabs: all slabs over the clusters the card holds at once,
-    ``resident(slab_rows, cluster, cols_per_cta)``.  ``live`` = (raw,) or
-    (raw, parity) live row counts.  Raises ValueError past
-    ``fused_max_q()``."""
-    cluster = min(FUSED_MAX_CLUSTER, -(-q // FUSED_TILE_N))
-    cols = -(-(-(-q // cluster)) // FUSED_TILE_N) * FUSED_TILE_N
+    take the tallest slab whose phi fits a CTA's shared memory beside a
+    ring of at least one stage.  Then cut the slabs of every row into
+    groups (one cluster each) of at most `chain` slabs: all slabs over the
+    clusters the card holds at once, ``resident(slab_rows, cluster,
+    cols_per_cta, stages)``.  The parity row's slabs embed nothing, so they
+    cost a fraction of a raw slab: they run after the raw clusters, spread
+    over as many clusters as the card holds.  ``live`` = (raw,) or (raw,
+    parity) live row counts.  Raises ValueError past ``fused_max_q()``."""
+    cluster = min(FUSED_MAX_CLUSTER, -(-q // FUSED_PIECE))
+    cols = -(-(-(-q // cluster)) // FUSED_PIECE) * FUSED_PIECE
     cluster = -(-q // cols)
     for slab in FUSED_SLAB_ROWS:
-        smem = fused_smem_bytes(slab, cols)
-        if smem <= FUSED_MAX_SMEM:
+        stages = fused_stages(slab, cols)
+        if stages:
             break
     else:
         raise ValueError(
@@ -201,9 +224,64 @@ def fused_plan(q: int, n_real: int, live: tuple, resident) -> FusedPlan:
             f"in {FUSED_MAX_SMEM} bytes of shared memory)")
     slabs = [max(1, -(-n // slab)) for n in live] + [1]
     total = n_real * slabs[0] + sum(slabs[1:-1])
-    chain = -(-total // max(1, resident(slab, cluster, cols)))
+    at_once = max(1, resident(slab, cluster, cols, stages))
+    chain = -(-total // at_once)
+    chain_par = -(-slabs[1] // at_once)
     return FusedPlan(slab, cluster, cols, -(-slabs[0] // chain),
-                     -(-slabs[1] // chain))
+                     -(-slabs[1] // chain_par), stages)
+
+
+def _tma_width(d: int, dtype) -> int:
+    """d rounded up to whole 16-byte rows of `dtype`, as TMA copies them."""
+    per = 16 // dtype.itemsize
+    return -(-d // per) * per
+
+
+def tf32_round(v):
+    """float32 `v` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    the nearest value with 10 fraction bits, ties away from zero (past the
+    largest finite value, to infinity); NaN stays NaN."""
+    bits = v.contiguous().view(torch.int32)
+    nan = torch.isnan(v)
+    mag = torch.where(nan, 0, bits & 0x7FFFFFFF)
+    out = ((mag + 0x1000) & -0x2000) | (bits & -0x80000000)
+    return torch.where(nan, v, out.view(torch.float32))
+
+
+def tf32_split(v):
+    """(big, small) of float32 `v` as ``split_tf32`` in csrc/mma_sm90.cuh
+    splits it: big = tf32_round(v), small = tf32_round(v - big)."""
+    big = tf32_round(v)
+    return big, tf32_round(v - big)
+
+
+class FusedOperands(NamedTuple):
+    """X (n, l, d) and Omega (d, q) prepared for the fused kernel: X and
+    Omega^T (q, d), d padded with zero columns to whole 16-byte rows; in
+    float32 the big and small TF32 parts of each (``tf32_split``), in
+    bfloat16 the values themselves (the small parts None)."""
+    x_big: torch.Tensor
+    x_small: torch.Tensor | None
+    omega_big: torch.Tensor
+    omega_small: torch.Tensor | None
+
+
+def prepare_rff_operands(x_raw, omega) -> FusedOperands:
+    """The copies of X and Omega that ``rff_linreg_grad_masked`` reads on
+    the card (``FusedOperands``): made once where both are fixed (a
+    deployment's ``build_consts``) and passed as ``prepared``.  Counted in
+    ``PREPARES`` on the card."""
+    (n, l, d), q = x_raw.shape, omega.shape[1]
+    width = _tma_width(d, omega.dtype)
+    x = torch.zeros((n, l, width), dtype=x_raw.dtype, device=x_raw.device)
+    x[..., :d] = x_raw
+    om = torch.zeros((q, width), dtype=omega.dtype, device=omega.device)
+    om[:, :d] = omega.t()
+    if omega.is_cuda:
+        PREPARES["rff_linreg_grad_masked"] += 1
+    if omega.dtype == torch.bfloat16:
+        return FusedOperands(x, None, om, None)
+    return FusedOperands(*tf32_split(x), *tf32_split(om))
 
 
 def rff_embed(x, omega, delta, q_true: int | None = None):
@@ -375,7 +453,7 @@ def linreg_grad_batched(x, theta, y):
 
 
 def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
-                           parity_phi=None, live_rows=None):
+                           parity_phi=None, live_rows=None, prepared=None):
     """Fused RFF embedding -> per-client masked gradients from RAW features.
 
     x_raw: (n, l, d), omega: (d, q), delta: (q,), theta: (q, c),
@@ -402,6 +480,11 @@ def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
     is already NaN or infinite, so g_b is not finite either way.  Rows with
     mask 0 inside the live range are computed, so a NaN feature there
     propagates as in the reference.
+
+    ``prepared`` is ``prepare_rff_operands(x_raw, omega)``, made once
+    where both are fixed; without it the card's call prepares its own.
+    The kernel reads X and Omega from it alone (zero columns pad d to whole
+    16-byte rows: they add 0 to X Omega).  The plain path ignores it.
     """
     name = "rff_linreg_grad_masked"
     extra = () if parity_phi is None else (parity_phi,)
@@ -431,6 +514,23 @@ def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
     _check_shape(name, mask, (rows, l))
     if parity_phi is not None:
         _check_shape(name, parity_phi, (l, q))
+    width = _tma_width(d, x_raw.dtype)
+    if prepared is None:
+        prepared = prepare_rff_operands(x_raw, omega)
+    split = x_raw.dtype == torch.float32
+    xb, ob = prepared.x_big, prepared.omega_big
+    xs, os_ = ((prepared.x_small, prepared.omega_small) if split
+               else (xb, ob))
+    if (xb.shape != (n, l, width) or ob.shape != (q, width)
+            or xb.dtype != x_raw.dtype or ob.dtype != x_raw.dtype
+            or xb.device != x_raw.device or ob.device != x_raw.device
+            or xs is None or os_ is None or xs.shape != xb.shape
+            or os_.shape != ob.shape or xs.dtype != xb.dtype
+            or os_.dtype != ob.dtype or not all(
+                t.is_contiguous() for t in (xb, xs, ob, os_))):
+        raise ValueError(f"{name}: prepared is not prepare_rff_operands of "
+                         f"a ({n}, {l}, {d}) X and a ({d}, {q}) Omega, "
+                         f"{x_raw.dtype} on {x_raw.device}")
     plan = fused_plan(q, n, live[:rows - n + 1], functools.partial(
         _resident_clusters, x_raw.device.index or 0,
         int(x_raw.dtype == torch.bfloat16)))
@@ -439,10 +539,10 @@ def rff_linreg_grad_masked(x_raw, omega, delta, theta, y_stack, mask, *,
     part = (torch.empty((clusters, q, c), **f32)
             if clusters > rows else None)
     g = torch.empty((rows, q, c), **f32)
-    _launch(name, symbol, x_raw.device, x_raw.data_ptr(), omega.data_ptr(),
-            delta.data_ptr(), theta.data_ptr(), y_stack.data_ptr(),
-            mask.data_ptr(), _ptr(parity_phi), _ptr(part), g.data_ptr(),
-            rows, n, l, d, q, c, q, live[0], live[1], *plan)
+    _launch(name, symbol, x_raw.device, xb.data_ptr(), xs.data_ptr(),
+            ob.data_ptr(), os_.data_ptr(), delta.data_ptr(), theta.data_ptr(),
+            y_stack.data_ptr(), mask.data_ptr(), _ptr(parity_phi), _ptr(part),
+            g.data_ptr(), rows, n, l, width, q, c, q, live[0], live[1], *plan)
     return g
 
 

@@ -118,8 +118,12 @@ def kernel_calls(inputs: dict, kernel_backend: str = "pallas",
         return k.parity_encode_batched(gg, ww, pp)
 
     if kernel_backend == "pallas":
+        prep = (ops.prepare_rff_operands(x_raw, omega) if omega.is_cuda
+                else None)
+
         def fused(x, th):
-            return ops.rff_linreg_grad_masked(x, omega, delta, th, y, mask)
+            return ops.rff_linreg_grad_masked(x, omega, delta, th, y, mask,
+                                              prepared=prep)
     else:
         def fused(x, th):
             return ref.rff_linreg_grad_masked(x, omega, delta, th, y, mask,

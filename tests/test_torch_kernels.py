@@ -312,9 +312,10 @@ def _zero_past(arrays, n, live_raw, live_par):
     return x, omega, delta, theta, y, mask, pphi
 
 
-# live counts of 1, one below, at and one above a 64-row slab, and every
-# row; the parity row's count differs from the clients'
-_LIVE = [(1, 1), (63, 130), (64, 65), (65, 64), (130, 1)]
+# live counts of 1, one below, at and one above a 64- and a 112-row slab,
+# and every row; the parity row's count differs from the clients'
+_LIVE = [(1, 1), (63, 130), (64, 65), (65, 64), (130, 1), (111, 113),
+         (113, 112)]
 
 
 @pytest.mark.parametrize("parity", [False, True], ids=["clients", "parity"])
@@ -379,11 +380,11 @@ def test_rff_linreg_grad_masked_refuses_bad_live_rows(live):
         ops.rff_linreg_grad_masked(*fused, live_rows=live)
 
 
-def _H100(slab_rows, cluster, cols_per_cta):
+def _H100(slab_rows, cluster, cols_per_cta, stages):
     """Clusters at once on 132 SMs of 233472 bytes of shared memory each,
     counting SMs only (no GPC boundaries)."""
-    per_sm = ops.SM_SMEM // (ops.fused_smem_bytes(slab_rows, cols_per_cta)
-                             + 1024)
+    per_sm = ops.SM_SMEM // (ops.fused_smem_bytes(slab_rows, cols_per_cta,
+                                                  stages) + 1024)
     return per_sm * 132 // cluster
 
 
@@ -416,29 +417,36 @@ def test_fused_plan_takes_every_q_the_pallas_kernel_takes(d, c, dtype):
         assert plan.cluster <= ops.FUSED_MAX_CLUSTER
         assert (plan.cluster - 1) * plan.cols_per_cta < q \
             <= plan.cluster * plan.cols_per_cta
-        assert ops.fused_smem_bytes(plan.slab_rows, plan.cols_per_cta) \
-            <= ops.FUSED_MAX_SMEM
+        assert ops.fused_smem_bytes(plan.slab_rows, plan.cols_per_cta,
+                                    plan.stages) <= ops.FUSED_MAX_SMEM
+        assert 1 <= plan.stages <= ops.FUSED_MAX_STAGES
+        assert plan.stages == ops.fused_stages(plan.slab_rows,
+                                               plan.cols_per_cta)
     with pytest.raises(ValueError, match="wider than the fused kernel"):
         ops.fused_plan(ops.fused_max_q() + 1, 30, (400, 2400), _H100)
 
 
 def test_fused_plan_at_the_main_shape():
-    """q = 2000 over a cluster of 8 CTAs, 64-row slabs, two CTAs an SM.
-    Live rows (400, 2400): 7 slabs a client and 38 on the parity row, 248
-    in all.  At most 8 of them a cluster fill 33 clusters at once (132 SMs)
-    or 30 (what the H100 reported): one group a client, five on the parity
-    row."""
-    assert ops.SM_SMEM // (ops.fused_smem_bytes(64, 256) + 1024) == 2
+    """q = 2000 over a cluster of 8 CTAs, 112-row slabs beside a ring of 3
+    stages, one CTA an SM.  Live rows (400, 2400): 4 slabs a client and 22
+    on the parity row, 142 in all.  At most 9 of them a cluster fill 16
+    clusters at once (132 SMs), 10 at 15 (what the H100 reported): one
+    group a client; the parity row's slabs, which embed nothing, two a
+    cluster over the clusters the card holds."""
+    assert ops.fused_smem_bytes(112, 256, 3) == 222000
+    assert ops.SM_SMEM // (ops.fused_smem_bytes(112, 256, 3) + 1024) == 1
     assert ops.fused_plan(2000, 30, (400, 2400), _H100) == \
-        ops.FusedPlan(64, 8, 256, 1, 5)
-    assert ops.fused_plan(2000, 30, (400, 2400), lambda *a: 30)[3:] == (1, 5)
-    # every row live: 38 slabs a row, 1178 in all: chains of 36 at 33
-    # clusters at once, of 40 at 30
-    assert ops.fused_plan(2000, 30, (2400, 2400), _H100)[3:] == (2, 2)
-    assert ops.fused_plan(2000, 30, (2400, 2400), lambda *a: 30)[3:] == (1, 1)
+        ops.FusedPlan(112, 8, 256, 1, 11, 3)
+    assert ops.fused_plan(2000, 30, (400, 2400), lambda *a: 15)[3:5] == \
+        (1, 11)
+    # every row live: 22 slabs a row, 682 in all: chains of 43 at 16
+    # clusters at once, of 46 at 15; the parity row's 22 slabs two a cluster
+    assert ops.fused_plan(2000, 30, (2400, 2400), _H100)[3:5] == (1, 11)
+    assert ops.fused_plan(2000, 30, (2400, 2400), lambda *a: 15)[3:5] == \
+        (1, 11)
     # no parity row; few rows: a group per slab
-    assert ops.fused_plan(2000, 30, (400,), _H100)[3:] == (1, 1)
-    assert ops.fused_plan(200, 3, (130,), _H100).groups_raw == 3
+    assert ops.fused_plan(2000, 30, (400,), _H100)[3:5] == (1, 1)
+    assert ops.fused_plan(200, 3, (130,), _H100).groups_raw == 2
 
 
 @pytest.mark.parametrize("n_real,live,resident",
@@ -455,6 +463,74 @@ def test_fused_groups_spread_the_slabs(n_real, live, resident):
     groups = (plan.groups_raw, plan.groups_par)[:len(live)]
     for n, g in zip(slabs, groups):
         assert 1 <= g <= n and -(-n // g) <= chain
+
+
+def _np_tf32_round(a):
+    """cvt.rna.tf32.f32 in float64 arithmetic: the nearest value with 11
+    significant bits (10 past a normal float32's point, never finer than a
+    float32 denormal's 13 dropped bits), ties away from zero; infinities and
+    NaN as they are."""
+    x = a.astype(np.float64)
+    out = x.copy()
+    fin = np.isfinite(x) & (x != 0)
+    _, e = np.frexp(np.abs(x[fin]))
+    quantum = np.ldexp(1.0, np.maximum(e - 11, -136))
+    out[fin] = np.sign(x[fin]) * np.floor(np.abs(x[fin]) / quantum + 0.5) \
+        * quantum
+    with np.errstate(over="ignore"):
+        return out.astype(np.float32)
+
+
+def test_tf32_split_matches_a_numpy_emulation_of_cvt_rna():
+    """ops.tf32_round / tf32_split (what prepare_rff_operands stores for the
+    kernel) give the bits of cvt.rna.tf32.f32, emulated in float64: random
+    values over 60 decades, ties, denormals, the largest float32 (rounds to
+    infinity), zeros, infinities; NaN stays NaN."""
+    rng = np.random.default_rng(0)
+    f32 = np.finfo(np.float32)
+    v = np.concatenate([
+        (rng.normal(size=20000) * 10.0 ** rng.integers(-30, 30, 20000)),
+        [0.0, -0.0, 1.0, 1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11),
+         1 + 2 ** -12, f32.max, -f32.max, 1e-40, -3e-42, 1.4e-45, np.inf,
+         -np.inf]]).astype(np.float32)
+    got = ops.tf32_round(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  _np_tf32_round(v).view(np.uint32))
+    big, small = ops.tf32_split(torch.from_numpy(v[:20000]))
+    want_big = _np_tf32_round(v[:20000])
+    np.testing.assert_array_equal(big.numpy().view(np.uint32),
+                                  want_big.view(np.uint32))
+    np.testing.assert_array_equal(
+        small.numpy().view(np.uint32),
+        _np_tf32_round(v[:20000] - want_big).view(np.uint32))
+    assert torch.isnan(ops.tf32_round(torch.tensor([np.nan]))).all()
+
+
+@pytest.mark.parametrize("d,width", [(8, 8), (15, 16), (784, 784), (3, 4)])
+def test_prepare_rff_operands_layout(d, width):
+    """X padded and Omega transposed and padded to whole 16-byte rows with
+    zeros; in float32 big + small is each value to about 2^-22, in
+    bfloat16 the values themselves; on the CPU PREPARES counts nothing."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(2, 5, d)).astype(np.float32))
+    om = torch.from_numpy(rng.normal(size=(d, 7)).astype(np.float32))
+    ops.reset_launch_counts()
+    p = ops.prepare_rff_operands(x, om)
+    assert ops.PREPARES["rff_linreg_grad_masked"] == 0
+    assert p.x_big.shape == (2, 5, width) and p.omega_big.shape == (7, width)
+    for big, small, want in ((p.x_big, p.x_small, x),
+                             (p.omega_big, p.omega_small, om.t())):
+        assert big.is_contiguous() and small.is_contiguous()
+        assert not big[..., d:].any() and not small[..., d:].any()
+        torch.testing.assert_close(big[..., :d] + small[..., :d], want,
+                                   rtol=2 ** -21, atol=0)
+        assert torch.equal(big, ops.tf32_round(big))
+    pb = ops.prepare_rff_operands(x.to(torch.bfloat16),
+                                  om.to(torch.bfloat16))
+    assert pb.x_small is None and pb.omega_small is None
+    assert pb.omega_big.shape == (7, -(-d // 8) * 8)
+    assert torch.equal(pb.omega_big[:, :d], om.to(torch.bfloat16).t())
+    assert torch.equal(pb.x_big[..., :d], x.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("m,q,splits", [(2400, 2000, 33), (400, 2000, 13),
@@ -672,13 +748,19 @@ def test_c_signatures_match_the_sources():
 
 def test_fused_layout_constants_match_the_source():
     src = (build.CSRC / "rff_linreg_grad.cu").read_text()
-    for c_name, value in (("TILE_N", ops.FUSED_TILE_N),
+    for c_name, value in (("PIECE", ops.FUSED_PIECE),
                           ("CMAX", ops.FUSED_CMAX),
                           ("MAX_CLUSTER", ops.FUSED_MAX_CLUSTER),
                           ("STAGE_BYTES", ops.FUSED_STAGE_BYTES),
+                          ("MAX_STAGES", ops.FUSED_MAX_STAGES),
+                          ("MAX_SLAB", 128),
                           ("MAX_SMEM", ops.FUSED_MAX_SMEM)):
         assert f"constexpr int {c_name} = {value};" in src, c_name
     assert "PHI_PAD = 4;" in src
+    # the ring's size, and what step 2 keeps in it, as fused_stages counts
+    assert "stages * STAGE_BYTES >= (PIECE + 5 * R) * CMAX * 4" in src
+    assert max(ops.FUSED_SLAB_ROWS) <= 128
+    assert all(r % 16 == 0 for r in ops.FUSED_SLAB_ROWS)
     lg = (build.CSRC / "linreg_grad.cu").read_text()
     assert f"constexpr int XTR_THREADS = {ops.LG_COLS};" in lg
     assert f"constexpr int MK_ROWS = {ops.MK_ROWS};" in lg
@@ -927,19 +1009,23 @@ def test_parity_encode_batched_kernel_matches_plain(cuda, n, u, l, q):
     assert _max_rel_err(got, ref.parity_encode_batched(*args)) < 1e-5
 
 
-# the fused kernel: 64-row slabs (32 or 16 where q is wide), 256-column
-# embedding tiles, clusters of up to 8 CTAs of 256 or more columns, K steps
-# of 8 (f32) or 16 (bf16), 16-byte copies where d and q allow, c chunks of
-# 16.  Edges: slab, tile and K edges; clusters of 2 and 3 CTAs (q = 511,
-# 512, 513), of 8 (q = 2000) and of 5 CTAs of 512 columns whose last tile
-# lies past q (q = 2049); 32-row (q = 6200) and 16-row (q = 20000) slabs;
-# c = 33 (three chunks)
+# the fused kernel: 112-row slabs (64, 32 or 16 where q is wide), 128-column
+# embedding tiles, clusters of up to 8 CTAs of 256 or more columns, stages
+# of 16 (f32) or 32 (bf16) of K, d padded to 16-byte rows by the wrapper
+# where it is not one (d % 4 or, in bf16, d % 8), c chunks of 16.  Edges:
+# tile and K edges, d % 16 and d % 32 != 0; clusters of 2 and 3 CTAs
+# (q = 511, 512, 513), of 8 (q = 2000) and of 5 CTAs of 512 columns whose
+# last tile lies past q (q = 2049); 32-row (q = 6200) and 16-row
+# (q = 20000) slabs; c = 33 (three chunks); L = 1 and L one below, at and
+# one above a slab (111, 112, 113)
 _FUSED_EDGES = [(1, 63, 15, 63, 15), (1, 64, 16, 64, 16),
                 (2, 65, 17, 65, 17), (3, 130, 784, 200, 10),
                 (2, 130, 64, 511, 10), (2, 129, 48, 512, 17),
                 (1, 65, 33, 513, 3), (2, 200, 784, 2000, 10),
                 (1, 70, 24, 2049, 5), (1, 70, 16, 6200, 3),
-                (1, 40, 8, 20000, 2), (2, 66, 40, 300, 33)]
+                (1, 40, 8, 20000, 2), (2, 66, 40, 300, 33),
+                (2, 1, 9, 300, 4), (2, 111, 40, 300, 5), (1, 112, 33, 257, 3),
+                (2, 113, 31, 300, 10)]
 
 
 @pytest.mark.cuda
@@ -1020,6 +1106,53 @@ def test_rff_linreg_grad_masked_kernel_propagates_nan(cuda, live, dtype):
     want = ref.rff_linreg_grad_masked(*args, pphi, n_real=n)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.isnan(got[:, :, 2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parity", [False, True], ids=["naive", "coded"])
+def test_rff_linreg_grad_masked_kernel_at_the_round_shape(cuda, parity):
+    """The coded round's shape, 30 clients' raw rows (30, 2400, 784) with
+    q = 2000, c = 10, live rows (400, 2400) and the parity row; the naive
+    round's, the same clients' 400 rows without it: against the plain
+    version, and two launches give the same bits."""
+    n = 30
+    L = 2400 if parity else 400
+    live = (400, L)
+    arrays = _zero_past(_fused_inputs(n, L, 784, 2000, 10, parity), n, *live)
+    args, pphi = _fused_on(cuda, arrays, "float32")
+    prepared = ops.prepare_rff_operands(args[0], args[1])
+    got = ops.rff_linreg_grad_masked(*args, parity_phi=pphi, live_rows=live,
+                                     prepared=prepared)
+    again = ops.rff_linreg_grad_masked(*args, parity_phi=pphi,
+                                       live_rows=live, prepared=prepared)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ref.rff_linreg_grad_masked(*args, pphi, n_real=n, live_rows=live)
+    assert _max_rel_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+def test_fused_round_prepares_once_and_launches_once_a_round(cuda):
+    """A fused coded deployment on the card prepares X and Omega once, when
+    it is built, and launches the fused kernel once a round: 10 rounds read
+    PREPARES 1 and LAUNCHES 10."""
+    from repro_torch import api, config
+    rng = np.random.default_rng(0)
+    n, l, d, c = 6, 16, 8, 3
+    xs = (rng.normal(size=(n, l, d)) * 0.5).astype(np.float32)
+    ys = rng.normal(size=(n, l, c)).astype(np.float32)
+    spec = config.ExperimentSpec(
+        fl=config.FLConfig(n_clients=n, delta=0.25, psi=0.3, seed=3),
+        train=config.TrainConfig(learning_rate=0.5, l2_reg=1e-4,
+                                 lr_decay_epochs=(5, 9)),
+        scheme="coded", rff=config.RFFConfig(q=24, sigma=1.5, seed=7),
+        fused_embed=True)
+    ops.reset_launch_counts()
+    exp = api.build_experiment(spec, xs, ys, device=cuda)
+    exp.run(10)
+    torch.cuda.synchronize()
+    assert ops.PREPARES["rff_linreg_grad_masked"] == 1
+    assert ops.LAUNCHES["rff_linreg_grad_masked"] == 10
 
 
 # linreg_grad splits L over 32-row-or-longer splits: one split (m < 33),
