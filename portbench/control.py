@@ -1,7 +1,9 @@
-"""The control of a cell's check: the plain reference in TF32 put in the
-program's place, on several seeds in one process.  It has to come out not
-correct on every seed; the smallest reading of each number is the upper
-reading its limit is set below.
+"""The control of a cell's check: the plain reference one precision below
+the configuration's put in the program's place (the control of the
+configuration's program module, for CodedFedL the reference in TF32), on
+several seeds in one process.  It has to come out not correct on every
+seed; the smallest reading of each number is the upper reading its limit
+is set below.
 
     python3 portbench/control.py --workload <cell> --seeds 1 2 3
 """

@@ -3,16 +3,18 @@ window produced against the plain reference, and the result line.
 
 Everything that belongs to one cell is found by name: the cell in
 ``BENCHMARK.json`` (its configuration and traffic), the configuration in
-``configs/<config>.json``, the traffic mix in ``traffic/<traffic>.json``,
-the limits of the check in ``limits/<cell>.json`` and each per-layer
-metric's reader in ``metrics/<metric>.py``.  A new cell, configuration or
-metric is new files and entries; this module stays as it is.
+``configs/<config>.json``, the program it runs in
+``programs/<program>.py`` (the configuration's ``"program"``), the traffic
+mix in ``traffic/<traffic>.json``, the limits of the check in
+``limits/<cell>.json`` and each per-layer metric's reader in
+``metrics/<metric>.py``.  A new cell, configuration, program or metric is
+new files and entries; this module stays as it is.
 
-The window drives the program's own entry: ``build_experiment`` ->
-``init_state(rounds, n_realizations=R)`` -> ``run_block(state, K)`` until
-the run is done -> ``finish``, then the next run from theta = 0 on the
-same deployment, its delay stream going on.  A block is timed from the
-call of ``run_block`` until its state is on the host.
+The run is the same for every program (``Program``): the program builds
+itself from the seed, ``WARMUP_BLOCKS`` blocks warm it, and the window
+times each block from its call until the device is synchronized, until
+``--seconds`` have passed.  A block's units of work are what
+``rounds_per_s`` counts.  Then the program checks what it produced.
 """
 from __future__ import annotations
 
@@ -23,13 +25,11 @@ import sys
 import time
 import types
 from pathlib import Path
+from typing import Protocol
 
-import numpy as np
 import torch
 
-from portbench import gen
 from portbench import trace as tr
-from portbench.reference import codedfedl as ref
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -50,6 +50,49 @@ class NoChip(RuntimeError):
     """The run cannot be measured here: no card, or too few."""
 
 
+class NoProgram(ImportError):
+    """The configuration names no program, or one with no module."""
+
+
+class Program(Protocol):
+    """What ``programs/<program>.py`` hands the run.  The module has
+    ``build(cfg, traffic, seed, dev, *, traced, checked) -> Program``,
+    which makes the inputs from the seed and builds the program through
+    the port's own entry (its set-up spans collected where `traced`; the
+    theta of `checked` runs kept for the check), and ``control(cfg,
+    traffic, seed, dev, *, checked) -> {name: value}``, the check's numbers
+    with the plain reference one precision below in the program's place."""
+
+    #: {wrapper: {"records": [...], "launch_record": name}} of the
+    #: program's hand-written kernels (``work/kernels.json``'s form), {}
+    #: where it runs library kernels only
+    kernels: dict
+    #: the module whose wrappers launch those kernels, for
+    #: ``trace.event_times`` (None where there are none)
+    ops: object
+
+    def turn(self) -> None:
+        """The program's own work between blocks, outside a block's time
+        but inside the window."""
+
+    def block(self) -> int:
+        """Run one block; returns the units of work it did."""
+
+    def launches(self) -> dict:
+        """{wrapper: launches so far} of ``kernels``."""
+
+    def check(self, log) -> tuple[dict, int]:
+        """Free the program's device state, then check what it produced:
+        ({name: value} by the names in ``limits/<cell>.json``, the units of
+        work that failed)."""
+
+    def fields(self, window: tuple, stretch) -> dict:
+        """The program's fields of the readers' context, after ``check``,
+        such as its set-up spans (``spans``, {name: seconds}): `window` is
+        (first block, blocks) of the window, `stretch` the traced stretch
+        (its ``first_block`` and ``blocks``) or None."""
+
+
 def load_json(path: Path) -> dict:
     return json.loads(path.read_text())
 
@@ -63,13 +106,36 @@ def find_cell(bench: dict, name: str) -> dict:
 
 
 def cell_parts(bench: dict, name: str, base: Path = HERE) -> tuple:
-    """(cell, configuration, traffic, limits) of the cell `name`, each from
-    its own file."""
+    """(cell, configuration, traffic, limits, program module) of the cell
+    `name`, each from its own file."""
     cell = find_cell(bench, name)
-    cfg = load_json(base / "configs" / f"{cell['config']}.json")
+    cfg_path = base / "configs" / f"{cell['config']}.json"
+    cfg = load_json(cfg_path)
+    module = load_program(cfg, base, cfg_path)
     traffic = load_json(base / "traffic" / f"{cell['traffic']}.json")
     limits = load_json(base / "limits" / f"{name}.json")
-    return cell, cfg, traffic, limits
+    return cell, cfg, traffic, limits, module
+
+
+def load_program(cfg: dict, base: Path = HERE,
+                 cfg_path: Path | str = "the configuration"):
+    """The module ``programs/<program>.py`` that the configuration `cfg`
+    (read from `cfg_path`) names under ``"program"``."""
+    name = cfg.get("program")
+    if not name:
+        raise NoProgram(f"{cfg_path} names no program: give it a "
+                        f"\"program\" whose module is "
+                        f"{base / 'programs'}/<program>.py")
+    path = base / "programs" / f"{name}.py"
+    if not path.is_file():
+        raise NoProgram(f"{cfg_path} names the program {name!r}, and "
+                        f"{path} does not exist")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_program_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def cell_metrics(bench: dict, name: str, kind: str) -> list:
@@ -113,112 +179,32 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-# ------------------------------------------------------------------ program
-def build_program(cfg: dict, traffic: dict, inp, dev: torch.device):
-    """The deployment through the program's entry, on the inputs made."""
-    from repro_torch.api import ExperimentSpec, build_experiment
-    from repro_torch.config import FLConfig, RFFConfig, TrainConfig
-    from repro_torch.core import rff
-
-    n, l, d = inp.x.shape
-    fl = FLConfig(n_clients=n, delta=cfg["delta"], psi=cfg["psi"],
-                  **cfg["network"])
-    train = TrainConfig(learning_rate=inp.lr, l2_reg=cfg["l2_reg"],
-                        lr_decay=cfg["lr_decay"],
-                        lr_decay_epochs=tuple(cfg["lr_decay_rounds"]))
-    spec = ExperimentSpec(fl=fl, train=train,
-                          rff=RFFConfig(q=cfg["q"], sigma=cfg["sigma"]),
-                          scheme=traffic["scheme"],
-                          fused_embed=cfg["fused_embed"])
-    kw = {}
-    if cfg["fused_embed"]:
-        xs = inp.x
-        kw["rff_draw"] = (inp.omega, inp.delta)
-    else:
-        # the embedded deployment's clients hold phi(X): kernel 1
-        xs = rff.rff_transform(inp.x.reshape(n * l, d), inp.omega,
-                               inp.delta).reshape(n, l, cfg["q"])
-    if inp.gens is not None:
-        kw["parity_generators"] = inp.gens
-    return build_experiment(spec, xs, inp.y,
-                            rng=np.random.default_rng(inp.host_seed),
-                            device=dev, **kw)
+def fp32_only() -> None:
+    """Matrix products in float32 on the card, as the configurations state
+    (PyTorch would otherwise be free to use TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
-class Runs:
-    """The runs the window drives on one deployment, and what each left:
-    its blocks, its returned counts and wall clock, its skipped rounds,
-    and theta after each block where the run is one of the checked."""
-
-    def __init__(self, exp, rounds: int, R: int, K: int, seed: int,
-                 checked: int):
-        self.exp, self.rounds, self.R, self.K = exp, rounds, R, K
-        self.pick = np.random.default_rng((int(seed), 7))
-        self.checked = checked
-        self.runs = []
-        self.state = None
-        self.blocks_done = 0
-        self._start()
-
-    def _start(self) -> None:
-        i = len(self.runs)
-        # run 0 always, then a reservoir of the later runs drawn from the
-        # seed, so the runs checked are a sample of all the window's
-        keep = i == 0
-        if i > 0 and self.checked > 1:
-            kept = [r for r in self.runs[1:] if r["thetas"] is not None]
-            if len(kept) < self.checked - 1:
-                keep = True
-            elif self.pick.random() < (self.checked - 1) / i:
-                kept[int(self.pick.integers(len(kept)))]["thetas"] = None
-                keep = True
-        self.runs.append({"blocks": 0, "thetas": [] if keep else None,
-                          "n_ret": None, "wall": None, "skipped": None})
-        self.state = self.exp.init_state(self.rounds, n_realizations=self.R)
-
-    def turn(self) -> None:
-        """Where the run is done, finish it and start the next one."""
-        if self.state.done:
-            res = self.exp.finish(self.state)
-            self.runs[-1]["wall"] = np.asarray(res.wall_clock)
-            self._start()
-
-    def block(self) -> int:
-        """Run one block of the current run; returns the realization-rounds
-        it did."""
-        before = self.state.rounds_done
-        with torch.profiler.record_function("portbench/run_block"):
-            self.state = self.exp.run_block(self.state, self.K)
-        run = self.runs[-1]
-        run["blocks"] += 1
-        self.blocks_done += 1
-        run["n_ret"] = np.asarray(self.state.n_ret)
-        run["skipped"] = np.asarray(self.state.skipped)
-        if run["thetas"] is not None:
-            run["thetas"].append(self.state.theta)
-        return (self.state.rounds_done - before) * self.R
-
-
-def traced_stretch(runs: Runs, dev: torch.device, kernels: dict,
+def traced_stretch(program: Program, first: int, dev: torch.device,
                    log) -> dict:
-    """Profile a stretch of blocks after the window and read it
-    (``trace.summarize``), with the source of its device times.
+    """Profile a stretch of blocks after the window, its first block the
+    run's `first`, and read it (``trace.summarize``), with the source of
+    its device times.
 
     The profiler on the card can drop device records, so each program
-    kernel's records are counted against ``ops.LAUNCHES`` over the same
+    kernel's records are counted against its launches over the same
     stretch.  Where some fall short, a shorter stretch is profiled; where
     the shortest still falls short, the kernels short of records are timed
     by CUDA events behind a spin kernel over a stretch of their own
     (``trace.event_times``), and their event times stand in the profiled
     stretch's kernel and busy times for the records it kept."""
-    from repro_torch.kernels import ops
-
     def step() -> None:
-        runs.turn()
-        runs.block()
+        program.turn()
+        program.block()
 
     for n in STRETCH_BLOCKS:
-        first, before = runs.blocks_done, dict(ops.LAUNCHES)
+        before = program.launches()
         sync(dev)
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -227,10 +213,12 @@ def traced_stretch(runs: Runs, dev: torch.device, kernels: dict,
                 for _ in range(n):
                     step()
                 sync(dev)
-        launches = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        launches = {k: v - before[k] for k, v in program.launches().items()}
         st = tr.summarize(tr.read_events(prof, ROOT / "build" / "portbench"
-                                         / "trace.json"), kernels, launches)
+                                         / "trace.json"), program.kernels,
+                          launches)
         st.update(first_block=first, blocks=n, source="torch.profiler")
+        first += n
         short = tr.short_records(st)
         log(f"stretch: {n} blocks, kernel records {st['records']} against "
             f"launches { {k: v for k, v in launches.items() if v} }")
@@ -238,7 +226,7 @@ def traced_stretch(runs: Runs, dev: torch.device, kernels: dict,
             break
     if short:
         per_launch = tr.event_times(
-            ops, sorted(short),
+            program.ops, sorted(short),
             lambda: [step() for _ in range(STRETCH_BLOCKS[0])])
         st = tr.with_event_times(st, per_launch)
         st["source"] = (f"torch.profiler; {sorted(per_launch)} by CUDA "
@@ -250,42 +238,6 @@ def traced_stretch(runs: Runs, dev: torch.device, kernels: dict,
 
 
 # ---------------------------------------------------------------- the check
-def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
-    den = float(torch.linalg.vector_norm(b))
-    gap = float(torch.linalg.vector_norm(a.float() - b))
-    return gap / den if den > 0 else (0.0 if gap == 0 else math.inf)
-
-
-def check(dep, program: dict, runs: list) -> tuple[dict, list]:
-    """The numbers compared: the program's results against the reference
-    deployment `dep`, which replays the same delay stream run by run.
-    Returns ({name: value}, the (R, rounds) counted rows of each run)."""
-    out = {"theta_gap": 0.0, "returned_diff": 0, "wall_gap": 0.0}
-    rows = []
-    if dep.scheme == "coded":
-        out["t_star_gap"] = abs(program["t_star"] - dep.t_star) / dep.t_star
-        out["loads_diff"] = int(np.max(np.abs(
-            np.asarray(program["loads"]) - dep.loads)))
-        out["parity_gap"] = max(_rel(program["parity_x"], dep.parity_x),
-                                _rel(program["parity_y"], dep.parity_y))
-    for run in runs:
-        blocks = [dep.block_delays(min(dep.K, dep.rounds - k * dep.K))
-                  for k in range(run["blocks"])]
-        rows.append(dep.counted_rows(blocks))
-        n_ret = dep.returned(blocks)
-        out["returned_diff"] += int(np.sum(n_ret != run["n_ret"]))
-        if run["wall"] is not None:
-            wall = dep.wall_clock(blocks)
-            out["wall_gap"] = max(out["wall_gap"], float(np.max(
-                np.abs(run["wall"] - wall) / wall)))
-        if run["thetas"]:
-            for got, want in zip(run["thetas"], dep.trajectory(blocks)):
-                for r in range(dep.R):
-                    out["theta_gap"] = max(out["theta_gap"],
-                                           _rel(got[r], want[r]))
-    return out, rows
-
-
 def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:
     checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
     ok = all(math.isfinite(c["value"]) and c["value"] <= c["limit"]
@@ -300,33 +252,25 @@ def run(bench: dict, name: str, seed: int, seconds: float, traced: bool, *,
     """One run of cell `name`; returns the result line's object."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     t_start = time.perf_counter() if t_start is None else t_start
-    cell, cfg, traffic, limits = cell_parts(bench, name, base)
+    cell, cfg, traffic, limits, module = cell_parts(bench, name, base)
     check_device(device, int(cell["chips"]))
     dev = torch.device(device)
-    ref.fp32_only()
-    from repro_torch.obs import spans
+    fp32_only()
 
-    inp = gen.make_inputs(cfg, traffic, seed, dev)
-    if traced:
-        spans.enable()
-        spans.reset()
-    exp = build_program(cfg, traffic, inp, dev)
-    span_totals = {k: v["total_s"] for k, v in spans.totals().items()}
-    spans.disable()
-    R, K = int(traffic["realizations"]), int(traffic["block_rounds"])
-    runs = Runs(exp, int(cfg["rounds"]), R, K, seed, CHECKED_RUNS)
+    program = module.build(cfg, traffic, seed, dev, traced=traced,
+                           checked=CHECKED_RUNS)
     for _ in range(WARMUP_BLOCKS):
-        runs.turn()
-        runs.block()
+        program.turn()
+        program.block()
     sync(dev)
     setup_s = time.perf_counter() - t_start
 
     block_s, done = [], 0
     t0 = time.perf_counter()
     while True:
-        runs.turn()
+        program.turn()
         tb = time.perf_counter()
-        done += runs.block()
+        done += program.block()
         sync(dev)
         te = time.perf_counter()
         block_s.append(te - tb)
@@ -334,50 +278,24 @@ def run(bench: dict, name: str, seed: int, seconds: float, traced: bool, *,
             break
     window_s = te - t0
     window_blocks = len(block_s)
-    log(f"window: {window_blocks} blocks, {done} realization-rounds in "
+    log(f"window: {window_blocks} blocks, {done} units of work in "
         f"{window_s:.3f} s; set-up {setup_s:.3f} s")
 
     stretch = None
     if traced:
-        stretch = traced_stretch(runs, dev, load_json(base / "work"
-                                                      / "kernels.json"), log)
+        stretch = traced_stretch(program, WARMUP_BLOCKS + window_blocks, dev,
+                                 log)
 
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
-    program = {"t_star": exp.t_star, "loads": np.array(exp.loads),
-               "parity_x": None, "parity_y": None}
-    if exp.parity is not None:
-        program["parity_x"], program["parity_y"] = exp.parity.x, exp.parity.y
-    skipped = sum(int(np.sum(r["skipped"])) for r in runs.runs)
-    all_runs = runs.runs
-    del exp, runs
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-
-    t_ref = time.perf_counter()
-    dep = ref.Deployment(cfg, traffic, inp)
-    numbers, rows = check(dep, program, all_runs)
-    log(f"check: the reference took {time.perf_counter() - t_ref:.3f} s "
-        f"over {len(all_runs)} runs, theta of "
-        f"{sum(1 for r in all_runs if r['thetas'])}")
+    numbers, failed = program.check(log)
     correct, checks = verdict(numbers, limits)
 
-    # the counted rows of each realization-round: the window's blocks, then
-    # the stretch's, in run order
-    flat = []
-    for run_rows in rows:
-        for b in range(0, run_rows.shape[1], K):
-            flat.append(run_rows[:, b:b + K])
-    stretch_rows = []
-    if stretch is not None:
-        first = stretch["first_block"]
-        stretch_rows = flat[first:first + stretch["blocks"]]
     ctx = types.SimpleNamespace(
-        cfg=cfg, traffic=traffic, cell=cell, spans=span_totals,
-        window_s=window_s, block_s=block_s, window_rounds=done,
-        window_rows=flat[WARMUP_BLOCKS:WARMUP_BLOCKS + window_blocks],
-        stretch_rows=stretch_rows, stretch=stretch, u=dep.u,
+        cfg=cfg, traffic=traffic, cell=cell, spans={}, window_s=window_s,
+        block_s=block_s, window_rounds=done, stretch=stretch,
         setup_s=setup_s, peaks=load_json(base / "work" / "peaks.json"))
+    vars(ctx).update(program.fields((WARMUP_BLOCKS, window_blocks), stretch))
     metrics = {}
     for m in cell_metrics(bench, name,
                           "per_layer" if traced else "end_to_end"):
@@ -391,7 +309,7 @@ def run(bench: dict, name: str, seed: int, seconds: float, traced: bool, *,
                    "count": int(cell["chips"]),
                    "memory_peak_bytes": int(peak)}
     out = {"correct": bool(correct), "attempted": int(done),
-           "failed": int(skipped), "metrics": metrics, "device": device_info}
+           "failed": int(failed), "metrics": metrics, "device": device_info}
     if stretch is not None:
         device_info["busy_s"] = stretch["busy_s"]
         device_info["window_s"] = stretch["window_s"]
@@ -405,22 +323,13 @@ def run(bench: dict, name: str, seed: int, seconds: float, traced: bool, *,
 # ---------------------------------------------------------------- control
 def control(bench: dict, name: str, seed: int, *, device: str = "cuda",
             base: Path = HERE) -> tuple:
-    """The cell's numbers with the reference in TF32 put in the program's
-    place: its first ``CHECKED_RUNS`` runs of the same delay stream, held
-    against the float32 reference as a run's are.  Returns (correct,
-    checks): the control has to come out not correct."""
-    cell, cfg, traffic, limits = cell_parts(bench, name, base)
+    """The cell's numbers with the plain reference one precision below in
+    the program's place (the program module's ``control``), over its first
+    ``CHECKED_RUNS`` runs.  Returns (correct, checks): the control has to
+    come out not correct."""
+    cell, cfg, traffic, limits, module = cell_parts(bench, name, base)
     check_device(device, int(cell["chips"]))
-    ref.fp32_only()
-    inp = gen.make_inputs(cfg, traffic, seed, torch.device(device))
-    ctl = ref.Deployment(cfg, traffic, inp, control=True)
-    runs = []
-    for _ in range(CHECKED_RUNS):
-        blocks = ctl.run_blocks()
-        runs.append({"blocks": len(blocks), "thetas": ctl.trajectory(blocks),
-                     "n_ret": ctl.returned(blocks),
-                     "wall": ctl.wall_clock(blocks)})
-    program = {"t_star": ctl.t_star, "loads": ctl.loads,
-               "parity_x": ctl.parity_x, "parity_y": ctl.parity_y}
-    numbers, _ = check(ref.Deployment(cfg, traffic, inp), program, runs)
+    fp32_only()
+    numbers = module.control(cfg, traffic, seed, torch.device(device),
+                             checked=CHECKED_RUNS)
     return verdict(numbers, limits)

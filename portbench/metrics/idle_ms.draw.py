@@ -1,6 +1,6 @@
 """idle_ms.draw: milliseconds a block of the device's idle time in the span
 stretch charged to the host delay draw (the program's span ``block/draw``),
-as ``span_stretch.idle_by_span`` charges it; nothing where the stretch's
+as ``trace.idle_by_span`` charges it; nothing where the stretch's
 kernel records fell short."""
 from portbench import span_stretch
 

@@ -1,6 +1,6 @@
 """idle_ms.readback: milliseconds a block of the device's idle time in the
 span stretch charged to the device-to-host reads (the program's span
-``block/readback``), as ``span_stretch.idle_by_span`` charges it; nothing
+``block/readback``), as ``trace.idle_by_span`` charges it; nothing
 where the stretch's kernel records fell short."""
 from portbench import span_stretch
 

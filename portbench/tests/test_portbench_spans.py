@@ -47,7 +47,7 @@ def _events():
 
 
 def test_idle_by_span_splits_a_gap_by_overlap():
-    got = ss.idle_by_span(_events(), ss.PROGRAM_SPANS)
+    got = tr.idle_by_span(_events(), ss.PROGRAM_SPANS)
     want = {"block/readback": 5, "block/draw": 5, "block/upload": 5,
             "scan/execute": 2, "round/step": 5,
             # 15..20, 30..33 inside the block's span, and 50..70
@@ -66,7 +66,7 @@ def test_idle_by_span_splits_a_gap_by_overlap():
 def test_idle_by_span_without_program_spans_is_the_caller_s():
     events = [e for e in _events() if not e["name"].startswith(
         ("block/", "scan/", "round/"))]
-    got = ss.idle_by_span(events, ss.PROGRAM_SPANS)
+    got = tr.idle_by_span(events, ss.PROGRAM_SPANS)
     assert got[ss.CALLER] == pytest.approx(70e-6)
     assert sum(v for k, v in got.items() if k != ss.CALLER) == 0
 

@@ -1,7 +1,8 @@
 """A tiny copy of the benchmark for the CPU tests: the real metric
-readers, work counts and limits, with configurations cut to a size a test
-run holds (d 16, q 64, l 20, 6 clients, runs of 20 rounds) and one cell of
-each kind, in which every metric is read.  The program runs the plain versions of its kernels there."""
+readers, program modules, work counts and limits, with configurations cut
+to a size a test run holds (d 16, q 64, l 20, 6 clients, runs of 20
+rounds) and one cell of each kind, in which every metric is read.  The
+program runs the plain versions of its kernels there."""
 from __future__ import annotations
 
 import json
@@ -29,7 +30,7 @@ def make_base(tmp: Path) -> tuple[Path, dict]:
     """(base directory, benchmark dict) of the tiny copy under `tmp`."""
     real = harness.HERE
     base = tmp / "bench"
-    for sub in ("metrics", "work"):
+    for sub in ("metrics", "work", "programs"):
         shutil.copytree(real / sub, base / sub)
     for sub in ("configs", "traffic", "limits"):
         (base / sub).mkdir(parents=True)

@@ -10,7 +10,9 @@ program's kernels are counted against the program's own launch counter
 (``ops.LAUNCHES``) over the same stretch (``short_records``).  A kernel
 whose records fall short is timed instead by CUDA events behind a spin
 kernel (``event_times``), and that time stands in for its records in the
-stretch's kernel and busy seconds (``with_event_times``).
+stretch's kernel and busy seconds (``with_event_times``).  The stretch's
+idle intervals, the gaps between its device records, can also be charged
+to the host spans under way in them (``idle_by_span``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from pathlib import Path
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 STRETCH = "portbench/stretch"
+#: ``idle_by_span``'s name for idle time under none of the spans it charges
+CALLER = "(caller)"
 #: event_times' first spin (~1 ms at the H100's SM clock) and its tries,
 #: the spin four times longer at each
 SPIN_CYCLES = 1 << 21
@@ -67,9 +71,68 @@ def _innermost_host(events: list, times: list) -> list:
     return out
 
 
+def _stretch(events: list) -> tuple:
+    """(the stretch annotation, the device records that overlap it, their
+    busy intervals [a, b) within it, merged)."""
+    (win,) = [e for e in events
+              if e["name"] == STRETCH and e.get("cat") == "user_annotation"]
+    w0, w1 = win["ts"], win["ts"] + win["dur"]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS
+           and e["ts"] < w1 and e["ts"] + e["dur"] > w0]
+    busy = _merge([(max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
+                   for e in dev])
+    return win, dev, busy
+
+
+def _gaps(win: dict, busy: list) -> list:
+    """The idle intervals [a, b) of the stretch `win`: it less `busy`."""
+    edges = [win["ts"]] + [x for ab in busy for x in ab] \
+        + [win["ts"] + win["dur"]]
+    return [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+
+
+def idle_intervals(events: list) -> list:
+    """The stretch's idle intervals [a, b) in microseconds: the stretch
+    annotation less its device records, as ``summarize`` finds them."""
+    win, _, busy = _stretch(events)
+    return _gaps(win, busy)
+
+
+def idle_by_span(events: list, names) -> dict:
+    """Seconds of the stretch's idle time charged to each span of `names`
+    (host ``user_annotation`` events of those names) and to `CALLER`:
+    each idle microsecond to the innermost such span under way then (the
+    one that started last), split exactly by overlap.  The parts add up to
+    the stretch's idle time."""
+    idle = idle_intervals(events)
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"] in names)
+    out = dict.fromkeys(names, 0.0)
+    out[CALLER] = 0.0
+    edges = sorted({x for ab in idle for x in ab}
+                   | {x for s in spans for x in s[:2]})
+    active, i, j = [], 0, 0
+    for x0, x1 in zip(edges, edges[1:]):
+        while i < len(spans) and spans[i][0] <= x0:
+            active.append(spans[i])
+            i += 1
+        active = [s for s in active if s[1] > x0]
+        while j < len(idle) and idle[j][1] <= x0:
+            j += 1
+        # the edges hold every idle edge: a segment is idle whole or not
+        if j < len(idle) and idle[j][0] <= x0:
+            who = (max(active, key=lambda s: (s[0], -s[1]))[2] if active
+                   else CALLER)
+            out[who] += x1 - x0
+    return {k: v * 1e-6 for k, v in out.items()}
+
+
 def read_events(prof, path: Path) -> list:
     """The profile's complete events, through its Chrome trace at `path`
-    (deleted after)."""
+    with this process's id in its name (deleted after), so processes that
+    share a checkout write apart."""
+    path = path.with_name(f"{path.stem}.{os.getpid()}{path.suffix}")
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     try:
@@ -89,13 +152,7 @@ def summarize(events: list, kernels: dict, launches: dict,
     name}} (``work/kernels.json``); `launches`: {wrapper: launches in the
     stretch}.  A wrapper's seconds are given only where its launch records
     number its launches."""
-    (win,) = [e for e in events
-              if e["name"] == STRETCH and e.get("cat") == "user_annotation"]
-    w0, w1 = win["ts"], win["ts"] + win["dur"]
-    dev = [e for e in events if e.get("cat") in DEVICE_CATS
-           and e["ts"] < w1 and e["ts"] + e["dur"] > w0]
-    busy = _merge([(max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
-                   for e in dev])
+    win, dev, busy = _stretch(events)
     busy_us = sum(b - a for a, b in busy)
 
     by_name = defaultdict(float)
@@ -116,8 +173,7 @@ def summarize(events: list, kernels: dict, launches: dict,
         if n_launch and n_rec == n_launch:
             kernel_s[wrapper] = recorded_s[wrapper]
 
-    edges = [w0] + [x for ab in busy for x in ab] + [w1]
-    idle = [(a, b) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+    idle = _gaps(win, busy)
     gaps = defaultdict(float)
     for (a, b), what in zip(idle, _innermost_host(
             events, [0.5 * (a + b) for a, b in idle])):
